@@ -1,0 +1,524 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase, one card
+
+Phases (any failed check exits non-zero; no phase catches its own failure):
+
+1. device   — prints ``nvidia-smi``'s name and power limit of the card.
+2. build    — compiles the kernels from ``src/repro_torch/kernels/csrc``.
+3. kernels  — each kernel (K1 prox, K2a gram, K2b gram+rhs, K3 admm_iter)
+              against its plain PyTorch version on the card at ragged
+              shapes, f32 and bf16 D, all five prox kinds, and two
+              identical calls compared bit for bit; then a small solve,
+              cuda backend against reference backend.
+4. main     — the main path at full size: the star-catalog logistic problem
+              (m = 16,777,216 rows x n = 307 features, f32, 20.6 GB on the
+              card) solved by ``UnwrappedADMM.solve`` on the cuda backend,
+              again with bf16 residency, and the SVM row of the fit table.
+              The launch counters are set to 0 just before and read just
+              after; x is held against the reference backend on the card.
+5. timing   — each kernel at the main path's shapes against its plain
+              version: median of CUDA-event times, its bound on this card,
+              and the library yardstick where one PyTorch call computes the
+              same function.
+
+The line before the last is the JSON ``kernels`` record; the last line is
+``{"ok": true, "device": {...}}``. The script imports no JAX and nothing of
+the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+M_MAIN = 16_777_216          # rows of the main-path problem
+ITERS = 200                  # iteration cap of the main-path solves
+REPS = 10                    # timed calls per kernel (median)
+SEED = 0
+KINDS = ("logistic", "hinge", "l1", "least_squares", "quantile")
+# Published peaks (NVIDIA data sheets, dense, at the full power limit):
+# HBM bytes/s and FP32 (non-tensor) FLOP/s, by the card's name.
+PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
+         "H100": (3.35e12, 67e12)}
+# FP32 operations per element of the prox (exp and division count as one;
+# the bisection step is ~12, a clamped Newton step ~16).
+PROX_FLOPS = {"logistic": 40 * 12 + 3 * 16 + 2, "hinge": 8, "l1": 6,
+              "least_squares": 6, "quantile": 10}
+SOURCES = {
+    "K1_prox_update": ("src/repro_torch/kernels/csrc/prox.cu",
+                       "src/repro/kernels/prox/prox.py:76"),
+    "K2a_gram": ("src/repro_torch/kernels/csrc/gram.cu",
+                 "src/repro/kernels/gram/gram.py:149"),
+    "K2b_gram_and_rhs": ("src/repro_torch/kernels/csrc/gram.cu",
+                         "src/repro/kernels/gram/gram.py:101"),
+    "K3_admm_iter": ("src/repro_torch/kernels/csrc/admm_iter.cu",
+                     "src/repro/kernels/admm_iter/admm_iter.py:82"),
+}
+
+
+def fail(msg: str):
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(ok: bool, msg: str):
+    print(f"{'ok  ' if ok else 'FAIL'} {msg}", flush=True)
+    if not ok:
+        sys.exit(1)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks(name: str):
+    for key, val in PEAKS.items():
+        if key in name:
+            return key, val
+    return "H100", PEAKS["H100"]
+
+
+class Timer:
+    """Median of per-call CUDA-event times, after a warm-up call."""
+
+    def __init__(self, torch, reps: int):
+        self.torch, self.reps = torch, reps
+
+    def __call__(self, fn) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(self.reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+
+def rel_err(torch, got, want) -> float:
+    """max |got - want| / max(1, max |want|)."""
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / max(1.0, float(want.abs().max())))
+
+
+def gram_err(torch, got, want) -> float:
+    """max |dG_ab| / sqrt(G_aa G_bb): Cauchy-Schwarz scale, so a column of
+    large entries cannot hide the error of a small one."""
+    got, want = got.double(), want.double()
+    dg = torch.sqrt(torch.clamp(torch.diagonal(want), min=1e-30))
+    return float(((got - want).abs() / (dg[:, None] * dg[None, :])).max())
+
+
+def phase_kernels(torch, rt):
+    from repro_torch.core.prox import make_hinge, make_logistic
+    from repro_torch.core.unwrapped import UnwrappedADMM
+    from repro_torch.kernels.admm_iter import ops as iter_ops
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.prox import ops as prox_ops
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    # K1: five kinds, ragged m
+    for m in (1000, 262144 + 77):
+        dx, lam = 3 * randn(m), randn(m)
+        aux = torch.sign(randn(m))
+        for kind in KINDS:
+            delta = {"logistic": 10.0, "hinge": 0.7, "l1": 0.3,
+                     "least_squares": 2.0, "quantile": 1.5}[kind]
+            a = None if kind == "l1" else aux
+            p = 0.3 if kind == "quantile" else 0.0
+            y1, l1 = prox_ops.prox_update(dx, lam, a, kind=kind, delta=delta,
+                                          param=p)
+            y1b, l1b = prox_ops.prox_update(dx, lam, a, kind=kind,
+                                            delta=delta, param=p)
+            y2, l2 = prox_ops.prox_update_plain(dx, lam, a, kind=kind,
+                                                delta=delta, param=p)
+            e = max(rel_err(torch, y1, y2), rel_err(torch, l1, l2))
+            check(e <= 4e-6 and torch.equal(y1, y1b) and torch.equal(l1, l1b),
+                  f"K1 prox {kind:13s} m={m}: rel err {e:.2e} <= 4e-6, "
+                  "bitwise repeat")
+    # K2a / K2b: ragged n, f32 and bf16, RHS widths 1, 5 and 70
+    for (m, n) in ((1000, 33), (1000, 307), (4099, 130)):
+        for dt in (torch.float32, torch.bfloat16):
+            D = randn(m, n).to(dt)
+            G1 = gram_ops.gram(D)
+            G1b = gram_ops.gram(D)
+            G2 = gram_ops.gram_plain(D)
+            e = gram_err(torch, G1, G2)
+            check(e <= 1e-5 and torch.equal(G1, G1b)
+                  and torch.equal(G1, G1.T),
+                  f"K2a gram m={m} n={n} {str(dt)[6:]}: err {e:.2e} <= 1e-5,"
+                  " bitwise repeat, exactly symmetric")
+            for r in (0, 5, 70):
+                b = randn(m, r) if r else randn(m)
+                G1, C1 = gram_ops.gram_and_rhs(D, b)
+                _, C1b = gram_ops.gram_and_rhs(D, b)
+                G2, C2 = gram_ops.gram_and_rhs_plain(D, b)
+                e = max(gram_err(torch, G1, G2), rel_err(torch, C1, C2))
+                check(e <= 1e-5 and torch.equal(C1, C1b)
+                      and C1.shape == C2.shape,
+                      f"K2b gram+rhs m={m} n={n} r={r} {str(dt)[6:]}: "
+                      f"err {e:.2e} <= 1e-5, bitwise repeat")
+    # K3: five kinds at n = 307 f32, ragged shapes, bf16
+    cases = [(1000, 307, torch.float32, k) for k in KINDS] + [
+        (1000, 33, torch.float32, "logistic"),
+        (1000, 307, torch.bfloat16, "logistic"),
+        (70001, 307, torch.float32, "hinge"),
+        (3000, 2050, torch.float32, "logistic")]
+    for m, n, dt, kind in cases:
+        D = randn(m, n).to(dt)
+        aux = torch.sign(randn(m))
+        y, lam, x = randn(m), randn(m), 0.1 * randn(n)
+        a = None if kind == "l1" else aux
+        p = 0.3 if kind == "quantile" else 0.0
+        out1 = iter_ops.admm_iter_full(D, a, y, lam, x, kind=kind, delta=2.0,
+                                       param=p)
+        out1b = iter_ops.admm_iter_full(D, a, y, lam, x, kind=kind,
+                                        delta=2.0, param=p)
+        out2 = iter_ops.admm_iter_plain(D, a, y, lam, x, kind=kind,
+                                        delta=2.0, param=p)
+        e_yl = max(rel_err(torch, out1[0], out2[0]),
+                   rel_err(torch, out1[1], out2[1]))
+        e_dwv = max(float((u - v).abs().max() / v.abs().max().clamp(min=1))
+                    for u, v in zip(out1[2:], out2[2:]))
+        same = all(torch.equal(u, v) for u, v in zip(out1, out1b))
+        check(e_yl <= 2e-5 and e_dwv <= 2e-5 and same,
+              f"K3 admm_iter {kind:13s} m={m} n={n} {str(dt)[6:]}: y/lam "
+              f"err {e_yl:.2e} <= 2e-5, d/w/v err {e_dwv:.2e} <= 2e-5, "
+              "bitwise repeat")
+    # small end-to-end parity: cuda backend vs reference backend, fixed
+    # iteration count (tests/test_engine.py::_run_parity tolerances)
+    D = randn(4, 250, 20)
+    lab = torch.sign(randn(4, 250))
+    for loss, tau, rho, iters in ((make_logistic(), 0.1, 0.0, 60),
+                                  (make_hinge(1.0), 0.5, 1.0, 80)):
+        runs = {be: UnwrappedADMM(loss, tau=tau, rho=rho, backend=be).run(
+            D, lab, iters=iters) for be in ("reference", "cuda")}
+        ref, got = runs["reference"], runs["cuda"]
+        nx = float(torch.linalg.norm(got.x - ref.x) / torch.linalg.norm(ref.x))
+        no = float(((got.history.objective - ref.history.objective).abs()
+                    / ref.history.objective.abs()).max())
+        check(nx < 2e-4 and no < 1e-4,
+              f"small solve {loss.name}: cuda vs reference x rel {nx:.2e} "
+              f"< 2e-4, objective rel {no:.2e} < 1e-4")
+
+
+def phase_main(torch, rt, rows: int, iters: int):
+    from repro_torch.core.prox import make_hinge, make_logistic
+    from repro_torch.core.unwrapped import UnwrappedADMM
+    from repro_torch.data.synthetic import star_catalog_problem
+    from repro_torch.kernels.admm_iter import ops as iter_ops
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.prox import ops as prox_ops
+
+    t0 = time.perf_counter()
+    prob = star_catalog_problem(SEED, 1, rows)
+    torch.cuda.synchronize()
+    D, lab = prob.D, prob.labels
+    m, n = rows, D.shape[-1]
+    print(f"data: star catalog {m} x {n} f32 ({D.numel() * 4 / 1e9:.1f} GB) "
+          f"in {time.perf_counter() - t0:.1f}s, "
+          f"labels +1 share {float((lab > 0).float().mean()):.3f}",
+          flush=True)
+    check(n == 307 and bool(torch.isfinite(D).all()),
+          "data: 307 finite features")
+
+    def summary(res):
+        x = res.x
+        Dx = D.reshape(m, n) @ x
+        a = lab.reshape(m)
+        obj = float(torch.sum(torch.logaddexp(-a * Dx,
+                                              torch.zeros((), device="cuda"))))
+        acc = float(torch.mean((torch.sign(Dx) == a).float()))
+        return obj, acc
+
+    logistic = dict(loss=make_logistic(), tau=0.1)
+    svm = dict(loss=make_hinge(1.0), tau=0.5, rho=1.0)
+    for fn in (prox_ops.prox_update, gram_ops.gram, gram_ops.gram_and_rhs,
+               iter_ops.admm_iter_full):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for label, kw, extra in (("f32", logistic, {}),
+                             ("bf16", logistic, {"residency": "bf16"}),
+                             ("svm", svm, {})):
+        solver = UnwrappedADMM(**kw, **extra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.solve(D, lab, max_iters=iters)
+        torch.cuda.synchronize()
+        runs[label] = (res, time.perf_counter() - t0, solver)
+    launches = {
+        "K1_prox_update": prox_ops.prox_update.launches,
+        "K2a_gram": gram_ops.gram.launches,
+        "K2b_gram_and_rhs": gram_ops.gram_and_rhs.launches,
+        "K3_admm_iter": iter_ops.admm_iter_full.launches,
+    }
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    total_iters = sum(r[0].iters for r in runs.values())
+    check(launches["K2a_gram"] == 3,
+          f"main path: K2a launched {launches['K2a_gram']} times = 3 Gram "
+          "setups")
+    check(launches["K3_admm_iter"] == total_iters,
+          f"main path: K3 launched {launches['K3_admm_iter']} times = "
+          f"{total_iters} iterations")
+    rt["launches"] = launches
+
+    for label, (res, secs, solver) in runs.items():
+        check(bool(torch.isfinite(res.x).all()) and res.x.shape == (n,),
+              f"{label}: x finite, shape ({n},)")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        L = solver.setup(D)
+        torch.cuda.synchronize()
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        if label == "f32":
+            # cond_2(G) = cond_2(L)^2 for the Cholesky factor L of G
+            cond = float(torch.linalg.cond(L.double())) ** 2
+            print(f"main: Gram condition number {cond:.4g}", flush=True)
+        obj, acc = summary(res)
+        per_iter = (secs * 1e3 - setup_ms) / max(res.iters, 1)
+        print(f"main {label}: {res.iters} iters, objective {obj:.6g}, "
+              f"train acc {acc:.4f}, gram setup {setup_ms:.1f} ms, "
+              f"{per_iter:.2f} ms/iter, solve {secs:.2f} s", flush=True)
+        check(acc > 0.6, f"{label}: train accuracy {acc:.4f} > 0.6")
+    print(f"main: peak device memory {peak:.2f} GB", flush=True)
+
+    # x against the reference backend on the card, at equal iteration
+    # counts (the two stop where their own residuals cross the tolerance).
+    # The f32 reference backend's own error is large at this m: its cuBLAS
+    # products sum 16.7M rows in f32. So both are also held against the
+    # same reference backend run in float64, the closest to exact this
+    # card can do.
+    res_c = runs["f32"][0]
+    ref_solver = UnwrappedADMM(**logistic, backend="reference")
+    res_r = ref_solver.solve(D, lab, max_iters=res_c.iters)
+    check(abs(res_r.iters - res_c.iters) <= 3,
+          f"stop iteration: cuda {res_c.iters}, reference {res_r.iters} "
+          "(within 3)")
+    k = res_r.iters
+    if k != res_c.iters:
+        res_c = UnwrappedADMM(**logistic).solve(D, lab, max_iters=k)
+    res_b = runs["bf16"][0]
+    if res_b.iters != k:
+        res_b = UnwrappedADMM(**logistic, residency="bf16").solve(
+            D, lab, max_iters=k)
+    x_c, x_r, x_b = res_c.x, res_r.x, res_b.x
+    rt["main"] = (D, lab, res_c.x, res_c.y, res_c.lam)
+    del runs, res_c, res_r, res_b
+    D64 = D.double()
+    res_64 = UnwrappedADMM(**logistic, backend="reference").solve(
+        D64, lab.double(), max_iters=k)
+    del D64
+    x64 = res_64.x
+
+    def rel(u, v):
+        return float(torch.linalg.norm(u.double() - v.double())
+                     / torch.linalg.norm(v.double()))
+
+    e_c, e_r, e_b, e_cr = rel(x_c, x64), rel(x_r, x64), rel(x_b, x64), \
+        rel(x_c, x_r)
+    print(f"x after {k} iters: f64 reference stopped at {res_64.iters}; "
+          f"f32 reference backend vs f64 {e_r:.2e}", flush=True)
+    check(res_64.iters == k and e_c <= 1e-4,
+          f"f32 cuda backend x vs f64 reference: rel {e_c:.2e} <= 1e-4")
+    # the f32 reference's own distance from f64 (printed above) bounds how
+    # close the two f32 backends can be; 1e-3 leaves it a factor of ~2
+    check(e_cr <= 1e-3, f"f32 cuda backend x vs f32 reference backend: "
+          f"rel {e_cr:.2e} <= 1e-3")
+    # bf16 residency iterates on a rounded copy of D (relative error up to
+    # 2^-9 per entry): the JAX suite's bf16 bound
+    check(e_b <= 5e-3,
+          f"bf16 residency x vs f64 reference: rel {e_b:.2e} <= 5e-3")
+
+
+def phase_timing(torch, rt, reps: int):
+    from repro_torch.kernels.admm_iter import ops as iter_ops
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.prox import ops as prox_ops
+
+    D3, lab, x, y, lam = rt["main"]
+    m, n = D3.shape[1], D3.shape[2]
+    D = D3.reshape(m, n)
+    a = lab.reshape(m)
+    x = x.float()
+    y, lam = y.reshape(m), lam.reshape(m)
+    bw, flops = rt["peaks"]
+    timer = Timer(torch, reps)
+    delta = 1.0 / 0.1
+    records = []
+    counts = dict(rt["launches"])
+
+    def bound(nbytes, nflops):
+        tb, tf = nbytes / bw * 1e3, nflops / flops * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    def record(name, err, k_ms, p_ms, b, lib_ms):
+        src, replaces = SOURCES[name]
+        records.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": err, "ms": k_ms, "kernel_ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms})
+        print(f"time {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"bound {b[0]:.3f} ms ({b[1]}), library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.3f} ms'}, "
+              f"err {err:.2e}", flush=True)
+
+    # K1 at the main path's m: Dx of the solution, its y/lam and labels
+    Dx = D @ x
+    k1 = lambda: prox_ops.prox_update(Dx, lam, a, kind="logistic",
+                                      delta=delta)
+    p1 = lambda: prox_ops.prox_update_plain(Dx, lam, a, kind="logistic",
+                                            delta=delta)
+    (yk, lk), (yp, lp) = k1(), p1()
+    err = max(float((yk - yp).abs().max()), float((lk - lp).abs().max()))
+    check(max(rel_err(torch, yk, yp), rel_err(torch, lk, lp)) <= 4e-6,
+          f"K1 at m={m}: err {err:.2e}")
+    record("K1_prox_update", err, timer(k1), timer(p1),
+           bound(5 * m * 4, m * PROX_FLOPS["logistic"]), None)
+
+    # K2a at the main path's D
+    G1, G2 = gram_ops.gram(D), gram_ops.gram_plain(D)
+    e = gram_err(torch, G1, G2)
+    check(e <= 1e-4 and torch.equal(G1, gram_ops.gram(D)),
+          f"K2a at {m}x{n}: err {e:.2e} <= 1e-4, bitwise repeat")
+    record("K2a_gram", float((G1 - G2).abs().max()), timer(
+        lambda: gram_ops.gram(D)), timer(lambda: gram_ops.gram_plain(D)),
+        bound(m * n * 4 + n * n * 4, m * n * n),
+        timer(lambda: D.T @ D))
+    # the Gram's own accuracy: K2a, its plain version and the library call
+    # against a float64 Gram of the same D (Cauchy-Schwarz scale)
+    G64 = torch.zeros((n, n), dtype=torch.float64, device=D.device)
+    for s in range(0, m, 1 << 20):
+        blk = D[s:s + (1 << 20)].double()
+        G64 += blk.T @ blk
+    del blk
+    errs = {name: gram_err(torch, G, G64) for name, G in (
+        ("K2a", G1), ("plain", G2), ("library D.T @ D", D.T @ D))}
+    print("gram vs f64: " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                      errs.items()), flush=True)
+    check(errs["K2a"] <= 1e-5, f"K2a vs f64 Gram: err {errs['K2a']:.2e} "
+          "<= 1e-5")
+    del G1, G2, G64
+
+    # K2b at the main path's D with the labels as the RHS
+    (G1, C1), (G2, C2) = gram_ops.gram_and_rhs(D, a), \
+        gram_ops.gram_and_rhs_plain(D, a)
+    e = max(gram_err(torch, G1, G2), rel_err(torch, C1, C2))
+    check(e <= 1e-4, f"K2b at {m}x{n}: err {e:.2e} <= 1e-4")
+    record("K2b_gram_and_rhs",
+           max(float((G1 - G2).abs().max()), float((C1 - C2).abs().max())),
+           timer(lambda: gram_ops.gram_and_rhs(D, a)),
+           timer(lambda: gram_ops.gram_and_rhs_plain(D, a)),
+           bound(m * n * 4 + m * 4 + n * n * 4 + n * 4,
+                 m * n * n + 2 * m * n), None)
+    del G1, G2
+
+    # K3 at the main path's D, f32, from the solution's iterates
+    k3 = lambda: iter_ops.admm_iter_full(D, a, y, lam, x, kind="logistic",
+                                         delta=delta)
+    p3 = lambda: iter_ops.admm_iter_plain(D, a, y, lam, x, kind="logistic",
+                                          delta=delta)
+    o1, o2 = k3(), p3()
+    e_yl = max(rel_err(torch, o1[0], o2[0]), rel_err(torch, o1[1], o2[1]))
+    e_dwv = max(float((u - v).abs().max() / v.abs().max().clamp(min=1))
+                for u, v in zip(o1[2:], o2[2:]))
+    same = all(torch.equal(u, v) for u, v in zip(o1, k3()))
+    check(e_yl <= 4e-6 and e_dwv <= 1e-4 and same,
+          f"K3 at {m}x{n}: y/lam err {e_yl:.2e} <= 4e-6, d/w/v err "
+          f"{e_dwv:.2e} <= 1e-4, bitwise repeat")
+    err = max(float((u - v).abs().max()) for u, v in zip(o1, o2))
+    record("K3_admm_iter", err, timer(k3), timer(p3),
+           bound(m * n * 4 + 5 * m * 4 + 4 * n * 4,
+                 m * (8 * n + PROX_FLOPS["logistic"])), None)
+    del o1, o2
+    # bf16 residency: the same kernel on the bf16 copy (printed, not in
+    # the kernels record: the record holds the main path's f32 shapes)
+    Db = D.to(torch.bfloat16)
+    kb = lambda: iter_ops.admm_iter_full(Db, a, y, lam, x, kind="logistic",
+                                         delta=delta)
+    ob, pb = kb(), iter_ops.admm_iter_plain(Db, a, y, lam, x,
+                                            kind="logistic", delta=delta)
+    e_yl = max(rel_err(torch, ob[0], pb[0]), rel_err(torch, ob[1], pb[1]))
+    check(e_yl <= 4e-6, f"K3 bf16 at {m}x{n}: y/lam err {e_yl:.2e}")
+    tb = bound(m * n * 2 + 5 * m * 4 + 4 * n * 4,
+               m * (8 * n + PROX_FLOPS["logistic"]))
+    print(f"time K3_admm_iter bf16 D: kernel {timer(kb):.3f} ms, bound "
+          f"{tb[0]:.3f} ms ({tb[1]})", flush=True)
+    rt["records"] = records
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", type=int, default=M_MAIN,
+                    help="rows of the main-path problem")
+    ap.add_argument("--skip-main", action="store_true",
+                    help="stop after the kernel checks (no result lines)")
+    args = ap.parse_args(argv)
+
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
+             "repository")
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a GPU")
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = smi_line()
+    name = torch.cuda.get_device_name(0)
+    peak_key, (bw, flops) = peaks(name)
+    print(f"device: {smi} (peaks of {peak_key}: {bw / 1e12:.2f} TB/s, "
+          f"{flops / 1e12:.0f} TFLOP/s FP32); torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    rt = {"peaks": (bw, flops)}
+
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    path = build.build()
+    build.library()
+    print(f"build: {path.name} in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    phase_kernels(torch, rt)
+    if args.skip_main:
+        return
+    phase_main(torch, rt, args.rows, ITERS)
+    phase_timing(torch, rt, REPS)
+    print(json.dumps({"kernels": rt["records"]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

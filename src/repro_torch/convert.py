@@ -1,0 +1,62 @@
+"""Carry the JAX package's solver state and data into the port.
+
+The JAX package hands over numpy arrays (``np.asarray`` of an
+``ADMMResult`` field or of a ``CheckpointManager`` tree leaf); this module
+turns them into the port's tensors on a given device, so a solve started
+in JAX can continue here (the parity tests do exactly that). A JAX loss
+spec (``{"name": "hinge", "C": 1.0}``) becomes the port's loss through
+:func:`loss_from_spec`. It imports nothing of the JAX package: the inputs
+are plain numpy arrays, dicts and loss specs.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.prox import loss_from_spec  # noqa: F401 (re-export)
+from repro_torch.device import resolve_device
+
+STATE_KEYS = ("x", "y", "lam", "d")
+
+
+def tensor(a, device="cuda", dtype: Optional[torch.dtype] = None
+           ) -> torch.Tensor:
+    """One array (numpy or anything ``np.asarray`` takes) as a tensor on
+    ``device``; bf16 arrays (which numpy keeps as ml_dtypes) go through
+    float32."""
+    arr = np.asarray(a)
+    bf16 = arr.dtype.name == "bfloat16"
+    if bf16:
+        arr = arr.astype(np.float32)
+    # a writable C-ordered array (copied only if it is not one already:
+    # a JAX array's numpy view is read-only)
+    arr = np.require(arr, requirements=["C", "W"])
+    t = torch.from_numpy(arr).to(resolve_device(device))
+    if dtype is None and bf16:
+        dtype = torch.bfloat16
+    return t if dtype is None else t.to(dtype)
+
+
+def solver_state(src, device="cuda") -> dict:
+    """``{"x", "y", "lam", "d"}`` tensors from an ``ADMMResult``-like
+    object (fields as attributes) or a checkpoint tree (a mapping); keys
+    the source lacks come back as None. Iterates keep the node-stacked
+    (N, m_i) layout."""
+    get = (src.get if isinstance(src, Mapping)
+           else lambda k: getattr(src, k, None))
+    out = {}
+    for k in STATE_KEYS:
+        v = get(k)
+        out[k] = None if v is None else tensor(v, device, torch.float32)
+    return out
+
+
+def problem_data(D, aux=None, device="cuda",
+                 dtype: Optional[torch.dtype] = None):
+    """(D, aux) as tensors on ``device``; D keeps its (N, m_i, n) layout
+    and, unless ``dtype`` is given, its type (f32 or bf16)."""
+    return (tensor(D, device, dtype),
+            None if aux is None else tensor(aux, device, torch.float32))
+

@@ -1,0 +1,115 @@
+"""K3 wrappers: the fused iteration body returning (y', lam', d, w, v);
+port of ``repro/kernels/admm_iter/ops.py``.
+
+CUDA tensors go to ``csrc/admm_iter.cu``; CPU tensors run the plain
+version :func:`admm_iter_plain`; any other device raises. The TPU wrapper
+zero-padded the rows to a block multiple; the CUDA kernel masks the ragged
+end of m, so no pad row exists.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.prox.ops import KIND_IDS
+from repro_torch.kernels.prox.ref import _prox
+
+DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def admm_iter_plain(D, aux, y, lam, x, *, kind: str, delta: float,
+                    param: float = 0.0, block_rows: int | None = None):
+    """The kernel's plain version. Rows go in blocks, each upcast to f32
+    on its own (a bf16 D is never upcast whole); the three transpose
+    reductions of a block are one product against the stacked
+    (y'-lam', y'-y, lam')."""
+    m, n = D.shape
+    if not block_rows:
+        from repro_torch.engine import autotune
+        block_rows = autotune.chunked_block_rows(m, n, D.dtype, D.device)
+    xf = x.float()
+    y_new = torch.empty((m,), dtype=torch.float32, device=D.device)
+    lam_new = torch.empty_like(y_new)
+    dwv = torch.zeros((n, 3), dtype=torch.float32, device=D.device)
+    for s in range(0, m, block_rows):
+        e = min(m, s + block_rows)
+        Db = D[s:e].float()
+        Dx = Db @ xf
+        lb = lam[s:e]
+        ab = aux[s:e] if aux is not None else torch.zeros_like(lb)
+        yb = _prox(kind, Dx + lb, float(delta), ab, newton_iters=3,
+                   param=param)
+        nb = lb + Dx - yb
+        y_new[s:e] = yb
+        lam_new[s:e] = nb
+        dwv += Db.T @ torch.stack([yb - nb, yb - y[s:e], nb], dim=1)
+    return y_new, lam_new, dwv[:, 0], dwv[:, 1], dwv[:, 2]
+
+
+def admm_iter_full(D, aux, y, lam, x, *, kind: str, delta: float,
+                   param: float = 0.0):
+    """Fused iteration body returning (y', lam', d, w, v).
+
+    d = D^T(y' - lam') feeds the next x-update (paper Alg. 2 line 6);
+    w = D^T(y' - y) and v = D^T lam' feed Boyd's dual residual and
+    tolerance without a second pass over D. Differences are formed in
+    registers before the reduction."""
+    if kind not in KIND_IDS:
+        raise ValueError(f"no fused iteration kernel for kind {kind!r}")
+    if D.device.type == "cpu":
+        return admm_iter_plain(D, aux, y, lam, x, kind=kind, delta=delta,
+                               param=param)
+    _check(D, aux, y, lam, x)
+    m, n = D.shape
+    from repro_torch.engine import autotune
+    R, nctas = autotune.iter_grid(m, n, D.dtype)
+    rows_per_cta = -(-m // nctas)
+    rows_per_cta = -(-rows_per_cta // R) * R
+    nctas = -(-m // rows_per_cta)
+    dev = D.device
+    y_new = torch.empty((m,), dtype=torch.float32, device=dev)
+    lam_new = torch.empty_like(y_new)
+    part = torch.empty((nctas, 3, n), dtype=torch.float32, device=dev)
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    rc = build.library().repro_admm_iter(
+        D.data_ptr(), DTYPE_IDS[D.dtype], x.data_ptr(), y.data_ptr(),
+        lam.data_ptr(), build.ptr(aux), y_new.data_ptr(), lam_new.data_ptr(),
+        part.data_ptr(), out.data_ptr(), m, n, R, rows_per_cta, nctas,
+        KIND_IDS[kind], float(delta), float(param), build.stream_ptr(D))
+    build.check(rc, "admm_iter_full")
+    admm_iter_full.launches += 1
+    return y_new, lam_new, out[0], out[1], out[2]
+
+
+admm_iter_full.launches = 0
+
+
+def admm_iter(D, aux, y, lam, x, *, kind: str, delta: float):
+    """Back-compat 3-tuple surface: (y', lam', d)."""
+    y_new, lam_new, d, _, _ = admm_iter_full(D, aux, y, lam, x, kind=kind,
+                                             delta=delta)
+    return y_new, lam_new, d
+
+
+def _check(D, aux, y, lam, x):
+    if D.device.type != "cuda":
+        raise ValueError(f"admm_iter: no kernel for device {D.device}")
+    if D.dtype not in DTYPE_IDS or D.dim() != 2 or not D.is_contiguous():
+        raise ValueError(f"admm_iter: expects a contiguous 2-D float32 or "
+                         f"bfloat16 D, got {D.dtype} {tuple(D.shape)}")
+    m, n = D.shape
+    if m == 0:
+        raise ValueError("admm_iter: D has no rows")
+    for name, v, size in (("y", y, m), ("lam", lam, m), ("aux", aux, m),
+                          ("x", x, n)):
+        if v is None:
+            if name != "aux":
+                raise ValueError(f"admm_iter: {name} is required")
+            continue
+        if v.device != D.device or v.dtype != torch.float32 \
+                or v.dim() != 1 or v.numel() != size \
+                or not v.is_contiguous():
+            raise ValueError(
+                f"admm_iter: {name} must be a contiguous float32 ({size},) "
+                f"tensor on {D.device}, got {v.dtype} {tuple(v.shape)} on "
+                f"{v.device}")

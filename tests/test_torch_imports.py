@@ -1,0 +1,161 @@
+"""The port's ground rules, checked: ``repro_torch`` and ``chip_smoke.py``
+import neither ``jax`` nor anything of ``repro``; the entry points run on
+the card by default and raise rather than fall back to the CPU; a CUDA
+tensor goes to the kernel, never to the plain version; nothing on the
+kernel path catches an error."""
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import prox as tprox
+from repro_torch.core.unwrapped import UnwrappedADMM
+from repro_torch.engine import IterationEngine
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
+def test_port_imports_no_jax_and_no_repro():
+    mods = _modules()
+    assert "repro_torch.engine.engine" in mods and len(mods) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for name in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax'\n"
+        "             or k.startswith(('jax.', 'jaxlib'))\n"
+        "             or k == 'repro' or k.startswith('repro.'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_port_sources_name_no_jax_or_repro():
+    """A static look as well: no import line of the port or the smoke
+    script names jax or the repro package."""
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                head = s.split()[1]
+                assert head.split(".")[0] not in ("jax", "jaxlib", "repro"), \
+                    f"{f}: {s}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
+    assert UnwrappedADMM.__dataclass_fields__["device"].default == "cuda"
+    assert IterationEngine.__dataclass_fields__["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        UnwrappedADMM(tprox.make_logistic(), tau=0.1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        IterationEngine(tprox.make_logistic())
+    from repro_torch.launch import fit
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit.main(["--nodes", "1", "--rows-per-node", "100",
+                  "--features", "4"])
+    # the CPU is used only when asked for
+    assert UnwrappedADMM(tprox.make_logistic(), device="cpu").device == "cpu"
+
+
+def test_kernel_path_catches_nothing():
+    """No try/except on the path from the engine to the kernels: a build
+    or launch error propagates, nothing falls back to the plain version."""
+    for sub in ("kernels", "engine", "exec", "core"):
+        for f in (PKG / sub).rglob("*.py"):
+            for line in f.read_text().splitlines():
+                s = line.strip()
+                assert not s.startswith(("try:", "except")), (f, s)
+                assert "torch.compile" not in s, (f, s)
+
+
+def test_kernel_bodies_are_hand_written():
+    """The CUDA sources call no library kernel (cuBLAS, cuDNN, CUTLASS's
+    device-level GEMMs); each wrapper launches its own C entry point."""
+    for f in (PKG / "kernels" / "csrc").iterdir():
+        text = f.read_text().lower()
+        for lib in ("cublas", "cudnn", "cutlass"):
+            assert lib not in text, (f, lib)
+    for op, entry in (("prox", "repro_prox_update"), ("gram", "repro_gram"),
+                      ("admm_iter", "repro_admm_iter")):
+        assert f".{entry}(" in (PKG / "kernels" / op / "ops.py").read_text()
+
+
+def test_smoke_script_refuses_without_checkout_or_gpu(tmp_path):
+    """chip_smoke.py alone in a directory, or on a machine without a GPU,
+    exits non-zero and prints no result line."""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    if not torch.cuda.is_available():
+        out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode != 0 and '"ok"' not in out.stdout
+        assert "torch.cuda.is_available() is False" in out.stdout
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from repro_torch.kernels.admm_iter import ops as iter_ops
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.kernels.prox import ops as prox_ops
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for mod, name in ((prox_ops, "prox_update_plain"),
+                      (gram_ops, "gram_plain"),
+                      (gram_ops, "gram_and_rhs_plain"),
+                      (iter_ops, "admm_iter_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    m, n = 1000, 37
+    D = torch.randn((m, n), generator=g, device=dev)
+    v = torch.randn((m,), generator=g, device=dev)
+    x = torch.randn((n,), generator=g, device=dev)
+    before = (prox_ops.prox_update.launches, gram_ops.gram.launches,
+              gram_ops.gram_and_rhs.launches,
+              iter_ops.admm_iter_full.launches)
+    prox_ops.prox_update(v, v, torch.sign(v), kind="logistic", delta=1.0)
+    gram_ops.gram(D)
+    gram_ops.gram_and_rhs(D, v)
+    iter_ops.admm_iter_full(D, torch.sign(v), v, v, x, kind="hinge",
+                            delta=1.0)
+    res = UnwrappedADMM(tprox.make_logistic(), tau=0.1).solve(
+        D[None], torch.sign(v)[None], max_iters=5)
+    torch.cuda.synchronize()
+    after = (prox_ops.prox_update.launches, gram_ops.gram.launches,
+             gram_ops.gram_and_rhs.launches,
+             iter_ops.admm_iter_full.launches)
+    assert [b - a for a, b in zip(before, after)] == [1, 2, 1, 1 + res.iters]
