@@ -1,12 +1,13 @@
-"""Carry the JAX package's solver state and data into the port.
+"""Carry the JAX package's solver state, data and LM weights into the port.
 
 The JAX package hands over numpy arrays (``np.asarray`` of an
-``ADMMResult`` field or of a ``CheckpointManager`` tree leaf); this module
-turns them into the port's tensors on a given device, so a solve started
-in JAX can continue here (the parity tests do exactly that). A JAX loss
-spec (``{"name": "hinge", "C": 1.0}``) becomes the port's loss through
-:func:`loss_from_spec`. It imports nothing of the JAX package: the inputs
-are plain numpy arrays, dicts and loss specs.
+``ADMMResult`` field, of a ``CheckpointManager`` tree leaf or of an LM
+``init_params`` tree); this module turns them into the port's tensors on a
+given device, so a solve started in JAX can continue here and both
+packages' LMs can run on the same weights (the parity tests do exactly
+that). A JAX loss spec (``{"name": "hinge", "C": 1.0}``) becomes the
+port's loss through :func:`loss_from_spec`. It imports nothing of the JAX
+package: the inputs are plain numpy arrays, dicts and loss specs.
 """
 from __future__ import annotations
 
@@ -51,6 +52,18 @@ def solver_state(src, device="cuda") -> dict:
         v = get(k)
         out[k] = None if v is None else tensor(v, device, torch.float32)
     return out
+
+
+def lm_params(tree, device="cuda"):
+    """The JAX package's ``init_params`` tree, handed over as numpy arrays
+    (``jax.tree.map(np.asarray, params)``), as the port's parameter tree:
+    the same keys, the list of stacked segments, shapes and dtypes (bf16
+    leaves stay bf16)."""
+    if isinstance(tree, Mapping):
+        return {k: lm_params(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_params(v, device) for v in tree]
+    return tensor(tree, device)
 
 
 def problem_data(D, aux=None, device="cuda",

@@ -1,0 +1,144 @@
+"""Serving path, attention subset: prefill (build caches) + single-token
+decode steps; port of ``repro/models/decode.py``.
+
+Cache layout (per homogeneous segment, leading L axis):
+  attn : k,v (L,B,Smax,Hkv_eff,hd) — rotated keys cached
+
+Only the kind ``"attn"`` is ported (ROADMAP section 1, item 11). Prefill
+runs the decoder layers through the chunked attention path, as the
+reference does, not through the flash kernel. The caches are allocated once
+per prefill and written in place by prefill and by every decode step.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attn.ops import chunked_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import _project_qkv, attention_decode, \
+    mlp, rmsnorm
+from repro_torch.models.model import (
+    _unported,
+    embed_tokens,
+    layer_kinds,
+    segment_structure,
+    tree_map,
+)
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Cache init
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, kind: str, count: int, B: int, s_max: int,
+               dtype=torch.bfloat16, device="cuda") -> Dict[str, Tensor]:
+    if kind != "attn":
+        raise _unported(f"the {kind!r} cache")
+    shape = (count, B, s_max, cfg.kv_heads_eff, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_caches(cfg: ModelConfig, B: int, s_max: int, dtype=torch.bfloat16,
+                device="cuda"):
+    return [
+        init_cache(cfg, kind, count, B, s_max, dtype, device)
+        for kind, count in segment_structure(layer_kinds(cfg))
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Per-layer decode step
+# ---------------------------------------------------------------------------
+
+def _block_step(params, cfg: ModelConfig, kind: str, x: Tensor,
+                cache: Dict[str, Tensor], pos) -> Tensor:
+    """x: (B, 1, d) -> x'. cache holds ONE layer (no L axis) and is
+    updated in place (the reference returns a new one)."""
+    if kind != "attn":
+        raise _unported(f"layer kind {kind!r}")
+    eps = cfg.norm_eps
+    h, _, _ = attention_decode(params["attn"], cfg,
+                               rmsnorm(x, params["ln1"], eps),
+                               cache["k"], cache["v"], pos)
+    x = x + h
+    return x + mlp(params["mlp"], rmsnorm(x, params["ln2"], eps),
+                   cfg.compute_dtype)
+
+
+def _head(params):
+    return params["lm_head"] if "lm_head" in params else params["embed"].T
+
+
+def decode_step(params, cfg: ModelConfig, caches, *, tokens: Tensor,
+                pos) -> Tuple[Tensor, list]:
+    """tokens: (B,) int; pos: int position. -> (logits (B,V), caches).
+    The caches are updated in place and returned."""
+    x = embed_tokens(params, cfg, tokens[:, None])
+    seg_meta = segment_structure(layer_kinds(cfg))
+    for (kind, count), stacked, cache in zip(seg_meta, params["blocks"],
+                                             caches):
+        for li in range(count):
+            lp = tree_map(lambda a: a[li], stacked)
+            lc = {key: c[li] for key, c in cache.items()}
+            x = _block_step(lp, cfg, kind, x, lc, pos)
+    h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = h[:, 0].float() @ _head(params).float()
+    return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# Prefill: forward that also fills the attention caches
+# ---------------------------------------------------------------------------
+
+def _block_prefill(params, cfg: ModelConfig, kind: str, x: Tensor,
+                   positions, cache: Dict[str, Tensor]) -> Tensor:
+    """Full-sequence block that also writes this layer's cache content
+    into ``cache`` (ONE layer, (B, Smax, Hkv_eff, hd) each)."""
+    if kind != "attn":
+        raise _unported(f"layer kind {kind!r}")
+    eps = cfg.norm_eps
+    cdt = cfg.compute_dtype
+    B, S, d = x.shape
+    h_in = rmsnorm(x, params["ln1"], eps)
+    q, k, v = _project_qkv(params["attn"], cfg, h_in, positions)
+    o = chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True,
+                          unroll=cfg.unroll_inner)
+    o = o.transpose(1, 2).reshape(B, S, -1)
+    x = x + o @ params["attn"]["wo"].to(cdt)
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    return x + mlp(params["mlp"], rmsnorm(x, params["ln2"], eps), cdt)
+
+
+def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+            positions=None, s_max: int, cache_dtype=torch.bfloat16):
+    """Run the prompt, return (last-token logits (B,V), caches). The
+    reference's ``enc_embeds`` / ``attn_impl`` reach only the encoder,
+    which the port does not have yet."""
+    if cfg.encoder_layers:
+        raise _unported("the encoder-decoder family")
+    if embeds is None:
+        embeds = embed_tokens(params, cfg, tokens)
+    B, S, d = embeds.shape
+    if positions is None:
+        base = torch.arange(S, device=embeds.device).expand(B, S)
+        positions = base.expand(3, B, S) if cfg.mrope else base
+    caches = init_caches(cfg, B, s_max, dtype=cache_dtype,
+                         device=embeds.device)
+    x = embeds
+    seg_meta = segment_structure(layer_kinds(cfg))
+    for (kind, count), stacked, cache in zip(seg_meta, params["blocks"],
+                                             caches):
+        for li in range(count):
+            lp = tree_map(lambda a: a[li], stacked)
+            lc = {key: c[li] for key, c in cache.items()}
+            x = _block_prefill(lp, cfg, kind, x, positions, lc)
+    h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = h[:, -1].float() @ _head(params).float()
+    return logits, caches

@@ -3,6 +3,7 @@ import neither ``jax`` nor anything of ``repro``; the entry points run on
 the card by default and raise rather than fall back to the CPU; a CUDA
 tensor goes to the kernel, never to the plain version; nothing on the
 kernel path catches an error."""
+import inspect
 import os
 import pkgutil
 import shutil
@@ -75,10 +76,19 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
         UnwrappedADMM(tprox.make_logistic(), tau=0.1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         IterationEngine(tprox.make_logistic())
-    from repro_torch.launch import fit
+    from repro_torch.launch import fit, serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fit.main(["--nodes", "1", "--rows-per-node", "100",
                   "--features", "4"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-8b", "--smoke", "--batch", "1",
+                    "--prompt-len", "4", "--gen", "2"])
+    # the LM's full-sequence path reaches the flash kernel unless asked not
+    from repro_torch.models import layers, model
+    for fn in (model.forward, model.loss_fn, model._run_stack,
+               model._apply_block, layers.attention):
+        assert inspect.signature(fn).parameters["attn_impl"].default \
+            == "cuda", fn
     # the CPU is used only when asked for
     assert UnwrappedADMM(tprox.make_logistic(), device="cpu").device == "cpu"
 
@@ -86,7 +96,7 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
 def test_kernel_path_catches_nothing():
     """No try/except on the path from the engine to the kernels: a build
     or launch error propagates, nothing falls back to the plain version."""
-    for sub in ("kernels", "engine", "exec", "core"):
+    for sub in ("kernels", "engine", "exec", "core", "models"):
         for f in (PKG / sub).rglob("*.py"):
             for line in f.read_text().splitlines():
                 s = line.strip()
@@ -102,7 +112,8 @@ def test_kernel_bodies_are_hand_written():
         for lib in ("cublas", "cudnn", "cutlass"):
             assert lib not in text, (f, lib)
     for op, entry in (("prox", "repro_prox_update"), ("gram", "repro_gram"),
-                      ("admm_iter", "repro_admm_iter")):
+                      ("admm_iter", "repro_admm_iter"),
+                      ("flash_attn", "repro_flash_attn")):
         assert f".{entry}(" in (PKG / "kernels" / op / "ops.py").read_text()
 
 
@@ -127,6 +138,7 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
     from repro_torch.kernels.admm_iter import ops as iter_ops
+    from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.kernels.prox import ops as prox_ops
 
@@ -136,7 +148,8 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
     for mod, name in ((prox_ops, "prox_update_plain"),
                       (gram_ops, "gram_plain"),
                       (gram_ops, "gram_and_rhs_plain"),
-                      (iter_ops, "admm_iter_plain")):
+                      (iter_ops, "admm_iter_plain"),
+                      (attn_ops, "flash_attention_plain")):
         monkeypatch.setattr(mod, name, boom)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -159,3 +172,9 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
              gram_ops.gram_and_rhs.launches,
              iter_ops.admm_iter_full.launches)
     assert [b - a for a, b in zip(before, after)] == [1, 2, 1, 1 + res.iters]
+    q = torch.randn((1, 4, 100, 64), generator=g, device=dev)
+    kv = torch.randn((1, 2, 100, 64), generator=g, device=dev)
+    launched = attn_ops.flash_attention.launches
+    attn_ops.flash_attention(q, kv, kv, causal=True)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_attention.launches == launched + 1
