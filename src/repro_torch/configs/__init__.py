@@ -22,7 +22,7 @@ ARCH_IDS = (
     "qwen2_vl_72b",
     "recurrentgemma_9b",
 )
-PORTED = ("qwen3_8b",)
+PORTED = ("qwen3_8b", "rwkv6_1p6b")
 
 # external ids (with dashes) -> module names
 ALIASES = {i.replace("_", "-").replace("-1p6b", "-1.6b"): i for i in ARCH_IDS}

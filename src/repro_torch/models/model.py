@@ -1,4 +1,4 @@
-"""Unified LM, dense subset: init / forward / loss; port of
+"""Unified LM, dense and rwkv6 subset: init / forward / loss; port of
 ``repro/models/model.py``.
 
 Param tree layout (the reference's pytree, one to one; every segment of the
@@ -6,10 +6,11 @@ stack carries a leading L axis):
   {embed, blocks, final_norm, lm_head}
 ``blocks`` is a list with one dict per homogeneous segment of layer kinds.
 
-Only the kind ``"attn"`` (the dense family) is ported; the others raise
-(ROADMAP section 1, item 11). The reference's ``shard(...)`` annotations and
-its scan / remat are mesh and compile-time devices and have no counterpart
-on one card: ``_run_stack`` is a Python loop over the stacked layers.
+The kinds ``"attn"`` (the dense family) and ``"rwkv"`` (rwkv6) are
+ported; the others raise (ROADMAP section 1, item 11). The reference's
+``shard(...)`` annotations and its scan / remat are mesh and compile-time
+devices and have no counterpart on one card: ``_run_stack`` is a Python
+loop over the stacked layers.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     attention,
@@ -28,7 +30,7 @@ from repro_torch.models.layers import (
 )
 
 Tensor = torch.Tensor
-PORTED_KINDS = ("attn",)
+PORTED_KINDS = ("attn", "rwkv")
 
 
 def _unported(what):
@@ -63,11 +65,15 @@ def tree_map2(fn, a, b):
 # ---------------------------------------------------------------------------
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str):
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         raise _unported(f"layer kind {kind!r}")
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=cfg.param_dtype,
                                 device=gen.device)
+    if kind == "rwkv":
+        return {"ln1": zeros(), "ln2": zeros(),
+                "tmix": rwkv_lib.init_time_mix(gen, cfg),
+                "cmix": rwkv_lib.init_channel_mix(gen, cfg)}
     return {"ln1": zeros(), "ln2": zeros(),
             "attn": init_attention(gen, cfg),
             "mlp": init_mlp(gen, d, cfg.d_ff, cfg.param_dtype)}
@@ -75,12 +81,21 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str):
 
 def _apply_block(params, cfg: ModelConfig, kind: str, x: Tensor,
                  positions: Tensor, *, causal: bool = True,
-                 attn_impl: str = "cuda") -> Tuple[Tensor, Tensor]:
+                 attn_impl: str = "cuda",
+                 wkv_impl: str = "cuda") -> Tuple[Tensor, Tensor]:
     """Returns (x_out, aux_loss)."""
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         raise _unported(f"layer kind {kind!r}")
     eps = cfg.norm_eps
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "rwkv":
+        h, _ = rwkv_lib.time_mix(params["tmix"], cfg,
+                                 rmsnorm(x, params["ln1"], eps),
+                                 wkv_impl=wkv_impl)
+        x = x + h
+        h, _ = rwkv_lib.channel_mix(params["cmix"], cfg,
+                                    rmsnorm(x, params["ln2"], eps))
+        return x + h, aux
     h = attention(params["attn"], cfg, rmsnorm(x, params["ln1"], eps),
                   positions, causal=causal, attn_impl=attn_impl)
     x = x + h
@@ -162,14 +177,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 def _run_stack(segments, seg_meta, cfg: ModelConfig, x: Tensor,
-               positions: Tensor, *, causal: bool, attn_impl: str = "cuda"):
+               positions: Tensor, *, causal: bool, attn_impl: str = "cuda",
+               wkv_impl: str = "cuda"):
     """Each homogeneous segment, layer by layer."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, count), stacked in zip(seg_meta, segments):
         for li in range(count):
             lp = tree_map(lambda a: a[li], stacked)
             x, a = _apply_block(lp, cfg, kind, x, positions, causal=causal,
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl, wkv_impl=wkv_impl)
             aux_total = aux_total + a
     return x, aux_total
 
@@ -185,13 +201,16 @@ def forward(params, cfg: ModelConfig, *, tokens: Optional[Tensor] = None,
             embeds: Optional[Tensor] = None,
             positions: Optional[Tensor] = None,
             enc_embeds: Optional[Tensor] = None,
-            attn_impl: str = "cuda") -> Tuple[Tensor, Tensor]:
+            attn_impl: str = "cuda",
+            wkv_impl: str = "cuda") -> Tuple[Tensor, Tensor]:
     """Returns (final hidden states (B,S,d), aux_loss). Decoder-causal.
 
     ``attn_impl="cuda"`` (the default) runs the flash kernel K4 on CUDA
     tensors and its plain version on CPU tensors; ``"xla"`` the chunked
     path. The reference defaults to its chunked path only because Pallas
-    does not lower on its CPU backend.
+    does not lower on its CPU backend. ``wkv_impl`` chooses the same way
+    for the rwkv layers: ``"cuda"`` the WKV kernel K5, ``"xla"`` the
+    reference's chunked form (``cfg.wkv_impl``).
     """
     if cfg.encoder_layers or enc_embeds is not None:
         raise _unported("the encoder-decoder family")
@@ -203,6 +222,7 @@ def forward(params, cfg: ModelConfig, *, tokens: Optional[Tensor] = None,
     x, aux = _run_stack(
         params["blocks"], segment_structure(layer_kinds(cfg)),
         cfg, embeds, positions, causal=True, attn_impl=attn_impl,
+        wkv_impl=wkv_impl,
     )
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -239,7 +259,8 @@ def chunked_cross_entropy(h: Tensor, lm_head: Tensor, labels: Tensor,
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Tensor],
-            attn_impl: str = "cuda") -> Tuple[Tensor, Dict[str, Tensor]]:
+            attn_impl: str = "cuda",
+            wkv_impl: str = "cuda") -> Tuple[Tensor, Dict[str, Tensor]]:
     h, aux = forward(
         params, cfg,
         tokens=batch.get("tokens"),
@@ -247,6 +268,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Tensor],
         positions=batch.get("positions"),
         enc_embeds=batch.get("enc_embeds"),
         attn_impl=attn_impl,
+        wkv_impl=wkv_impl,
     )
     lm_head = params["lm_head"] if "lm_head" in params \
         else params["embed"].T

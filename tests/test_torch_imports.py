@@ -84,10 +84,16 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
         serve.main(["--arch", "qwen3-8b", "--smoke", "--batch", "1",
                     "--prompt-len", "4", "--gen", "2"])
     # the LM's full-sequence path reaches the flash kernel unless asked not
-    from repro_torch.models import layers, model
+    from repro_torch.models import decode, layers, model, rwkv6
     for fn in (model.forward, model.loss_fn, model._run_stack,
                model._apply_block, layers.attention):
         assert inspect.signature(fn).parameters["attn_impl"].default \
+            == "cuda", fn
+    # ... and the WKV kernel, in prefill too
+    for fn in (model.forward, model.loss_fn, model._run_stack,
+               model._apply_block, decode.prefill, decode._block_prefill,
+               rwkv6.time_mix):
+        assert inspect.signature(fn).parameters["wkv_impl"].default \
             == "cuda", fn
     # the CPU is used only when asked for
     assert UnwrappedADMM(tprox.make_logistic(), device="cpu").device == "cpu"
@@ -113,7 +119,8 @@ def test_kernel_bodies_are_hand_written():
             assert lib not in text, (f, lib)
     for op, entry in (("prox", "repro_prox_update"), ("gram", "repro_gram"),
                       ("admm_iter", "repro_admm_iter"),
-                      ("flash_attn", "repro_flash_attn")):
+                      ("flash_attn", "repro_flash_attn"),
+                      ("wkv", "repro_wkv")):
         assert f".{entry}(" in (PKG / "kernels" / op / "ops.py").read_text()
 
 
@@ -141,6 +148,7 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.kernels.prox import ops as prox_ops
+    from repro_torch.kernels.wkv import ops as wkv_ops
 
     def boom(*a, **k):
         raise AssertionError("plain version called for a CUDA tensor")
@@ -149,7 +157,8 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
                       (gram_ops, "gram_plain"),
                       (gram_ops, "gram_and_rhs_plain"),
                       (iter_ops, "admm_iter_plain"),
-                      (attn_ops, "flash_attention_plain")):
+                      (attn_ops, "flash_attention_plain"),
+                      (wkv_ops, "wkv_plain")):
         monkeypatch.setattr(mod, name, boom)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -178,3 +187,8 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
     attn_ops.flash_attention(q, kv, kv, causal=True)
     torch.cuda.synchronize()
     assert attn_ops.flash_attention.launches == launched + 1
+    r = torch.randn((1, 2, 64, 64), generator=g, device=dev)
+    launched = wkv_ops.wkv.launches
+    wkv_ops.wkv(r, r, r, -torch.ones_like(r), r[0, :, 0], chunk=16)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv.launches == launched + 1

@@ -103,7 +103,7 @@ def test_param_count_of_every_family_matches(family, extra):
 
 def test_unported_archs_and_kinds_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
-        tconfigs.get("rwkv6-1.6b")
+        tconfigs.get("recurrentgemma-9b")
     with pytest.raises(NotImplementedError, match="item 11"):
         tconfigs.get_smoke("olmoe-1b-7b")
     with pytest.raises(KeyError):
@@ -112,6 +112,10 @@ def test_unported_archs_and_kinds_raise():
                                          num_experts=4)))
     with pytest.raises(NotImplementedError, match="item 11"):
         tm.init_params(cfg, torch.Generator().manual_seed(0))
+    grif = to_torch_config(JConfig(**dict(DENSE_F32, family="griffin",
+                                          pattern=("rec", "attn"))))
+    with pytest.raises(NotImplementedError, match="layer kind 'rec'"):
+        tm.init_params(grif, torch.Generator().manual_seed(0))
 
 
 def test_lm_params_keeps_tree_shapes_and_dtypes():

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs as jconfigs
 from repro.models import decode as jd
 from repro.models import model as jm
 from repro.models.config import ModelConfig as JConfig
@@ -26,13 +27,18 @@ from repro_torch.runtime.steps import make_serve_step
 jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
 
-# tests/test_decode_parity.py:13-30, the two dense-family rows
+# tests/test_decode_parity.py:13-30, the two dense-family rows and the rwkv
+# row; and the rwkv6-1.6b smoke config in f32
 COMMON = dict(num_layers=4, d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
               vocab_size=128, compute_dtype=jnp.float32)
 CFGS = {
     "dense": JConfig(name="dense", family="dense", qk_norm=True, **COMMON),
     "vlm": JConfig(name="vlm", family="dense", mrope=True,
                    mrope_sections=(2, 3, 3), **COMMON),
+    "rwkv": JConfig(name="rwkv", family="rwkv6", rwkv_head_dim=16,
+                    rwkv_lora_rank=4, wkv_chunk=4, **COMMON),
+    "rwkv6-1.6b-smoke": dataclasses.replace(
+        jconfigs.get_smoke("rwkv6-1.6b"), compute_dtype=jnp.float32),
 }
 B, S, SMAX = 2, 12, 20
 
@@ -75,9 +81,10 @@ def test_prefill_and_decode_match_jax(name):
                          s_max=SMAX, cache_dtype=torch.float32,
                          **_positions(tcfg, S, torch))
     np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), atol=2e-4)
-    for key in ("k", "v"):
+    assert sorted(tc[0]) == sorted(jc[0])
+    for key in tc[0]:
         np.testing.assert_allclose(tc[0][key].numpy(), np.asarray(jc[0][key]),
-                                   atol=2e-4)
+                                   atol=2e-4, err_msg=key)
     j_step = jax.jit(lambda p, c, t, pos: jd.decode_step(
         p, jcfg, c, tokens=t, pos=pos))
     step = make_serve_step(tcfg)
@@ -85,8 +92,9 @@ def test_prefill_and_decode_match_jax(name):
         jlg, jc = j_step(jp, jc, jnp.asarray(tok[:, t]), jnp.asarray(t))
         tlg, tc = step(tp, tc, torch.from_numpy(tok[:, t]).long(), t)
         np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), atol=2e-4)
-    np.testing.assert_allclose(tc[0]["k"].numpy(), np.asarray(jc[0]["k"]),
-                               atol=2e-4)
+    for key in tc[0]:
+        np.testing.assert_allclose(tc[0][key].numpy(), np.asarray(jc[0][key]),
+                                   atol=2e-4, err_msg=key)
 
 
 def _forward_logits(tp, tcfg, tok, n):
@@ -98,7 +106,7 @@ def _forward_logits(tp, tcfg, tok, n):
 @pytest.mark.parametrize("name", sorted(CFGS))
 def test_prefill_decode_matches_forward(name):
     """The port's own invariant: serving continues exactly where the full
-    forward (through K4's plain version here) would."""
+    forward (through K4's or K5's plain version here) would."""
     _, tcfg, _, tp, tok = _setup(name)
     full = _forward_logits(tp, tcfg, tok, S + 4)
     lg, caches = td.prefill(tp, tcfg,
@@ -142,3 +150,12 @@ def test_serve_main_returns_generated_tokens(capsys):
         "--arch", "qwen3-8b", "--smoke", "--device", "cpu", "--batch", "2",
         "--prompt-len", "16", "--gen", "4", "--temperature", "0.8",
         "--seed", "1"]))
+
+
+def test_serve_main_runs_rwkv6(capsys):
+    gen = tserve.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "16", "--gen", "4"])
+    assert gen.shape == (2, 4) and gen.dtype == torch.long
+    assert int(gen.min()) >= 0 and int(gen.max()) < 256
+    out = capsys.readouterr().out
+    assert "prefill 2x16" in out and "tok/s" in out and "ms/step" in out
