@@ -12,7 +12,10 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
 3. kernels  — each kernel (K1 prox, K2a gram, K2b gram+rhs, K3 admm_iter,
               K4 flash attention, K5 wkv) against its plain PyTorch version
               on the card at ragged shapes, f32 and bf16, all five prox
-              kinds, K4's GQA groups, head dims and masks, K5's head dims,
+              kinds, K4's GQA groups, head dims and masks on both routes
+              (bf16 tensor cores; FMA), each call's route read from the
+              counters, the tensor-core cases also against the plain
+              version with P rounded to bf16, K5's head dims,
               chunks, layouts, final state and hard decay, and two
               identical calls compared bit for bit; then a small solve,
               cuda backend against reference backend.
@@ -32,16 +35,19 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
 6. lm main  — ``forward`` through the slice's kernel (K4 for qwen3-8b at
               B 2 x S 4096, K5 for rwkv6-1.6b at B 8 x T 4096) and
               ``loss_fn``, with the kernel's count set to 0 just before and
-              read just after (one launch per layer and forward);
+              read just after (one launch per layer and forward; K4's
+              per-route counters: all on the tensor-core route);
               ``forward`` on the chunked path against it; prefill plus 4
               decode steps against ``forward``'s logits; then the same at
-              full width, 4 layers and f32 compute with tight bounds.
+              full width, 4 layers and f32 compute with tight bounds
+              (K4: all on the FMA route).
 7. serve    — ``repro_torch.launch.serve.main`` at full size (batch 8,
               prompt 2048, 64 generated tokens): prefill seconds, decode
               ms/step and tok/s.
 8. timing   — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
               bf16, causal) against its plain version and
-              ``scaled_dot_product_attention``; K5 at the rwkv lm shape
+              ``scaled_dot_product_attention``, and the FMA route on f32
+              copies of the same inputs (printed); K5 at the rwkv lm shape
               (B 8, H 32, T 4096, hd 64, chunk 16, bf16 r/k/v) against its
               plain version and the model's torch chunked form.
 
@@ -89,7 +95,9 @@ SOURCES = {
                          "src/repro/kernels/gram/gram.py:101"),
     "K3_admm_iter": ("src/repro_torch/kernels/csrc/admm_iter.cu",
                      "src/repro/kernels/admm_iter/admm_iter.py:82"),
-    "K4_flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+    # bf16 at D 64 / 128, the main path's route; f32 and D 16 take
+    # csrc/flash_attn.cu (timed beside it, printed)
+    "K4_flash_attention": ("src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
                            "src/repro/kernels/flash_attn/flash_attn.py:80"),
     "K5_wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                "src/repro/kernels/wkv/wkv.py:67"),
@@ -513,12 +521,45 @@ def phase_timing(torch, rt, reps: int):
           f"{tb[0]:.3f} ms ({tb[1]})", flush=True)
 
 
+# K4's tensor-core kernel against the plain version with P rounded to bf16
+# as the kernel rounds it: what is left is the output's own bf16 rounding
+# (one ulp, at most 2^-7 |o|, where the two f32 results straddle a rounding
+# boundary) and f32 sums in another order, which can move a rounded p by one
+# ulp. Against the f32-P plain version the bound stays the reference's 2e-2.
+TC_ULPS = 2.0 ** -7
+TC_ABS = 2e-3
+
+
+def tc_err(torch, got, want) -> float:
+    """max over elements of |got - want| - 2^-7 |want|: what the kernel's
+    output is off by beyond one bf16 ulp of the bf16-P plain version."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() - TC_ULPS * want.abs()).max())
+
+
+def route_counts(wrapper):
+    """K4's per-route launch counts, or None for a one-kernel wrapper."""
+    if not hasattr(wrapper, "launches_tc"):
+        return None
+    return {"tc": wrapper.launches_tc, "fma": wrapper.launches_fma}
+
+
+def zero_counts(wrapper):
+    wrapper.launches = 0
+    if route_counts(wrapper) is not None:
+        wrapper.launches_tc = wrapper.launches_fma = 0
+
+
 def phase_attn_kernels(torch):
     """K4 against its plain version at small shapes: f32 and bf16, causal
     and not, GQA groups 1, 2 and 4, head dims 16, 64 and 128, ragged
     lengths with Sq = Skv and Sq < Skv, and the model's (B, S, H, D)
-    layout; ``scaled_dot_product_attention`` printed as a second opinion."""
+    layout; each call's route (tensor cores for bf16 at D 64 / 128, FMA
+    otherwise) checked by the counters; the tensor-core cases also against
+    the plain version with P rounded to bf16;
+    ``scaled_dot_product_attention`` printed as a second opinion."""
     from repro_torch.kernels.flash_attn import ops as attn_ops
+    fa = attn_ops.flash_attention
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -527,9 +568,14 @@ def phase_attn_kernels(torch):
              for dt in (f32, bf16) for causal in (True, False)
              for grp in (1, 2, 4) for D in (64, 128)]
     cases += [(1, 8, 2, 1000, 1000, 128, dt, True, False) for dt in (f32, bf16)]
-    cases += [(2, 4, 1, 300, 1000, 64, f32, c, False) for c in (True, False)]
+    cases += [(2, 4, 1, 300, 1000, D, dt, c, False) for c in (True, False)
+              for D, dt in ((64, f32), (64, bf16), (128, bf16))]
     cases += [(2, 4, 2, 77, 77, 16, bf16, True, False),
-              (2, 32, 16, 300, 300, 128, bf16, True, True)]
+              (2, 32, 16, 300, 300, 128, bf16, True, True),
+              # bf16 at D 64: ragged Skv, and the model's layout
+              (1, 4, 2, 200, 333, 64, bf16, False, False),
+              (1, 4, 2, 333, 333, 64, bf16, True, False),
+              (2, 8, 4, 300, 300, 64, bf16, True, True)]
     for B, Hq, Hkv, Sq, Skv, D, dt, causal, bshd in cases:
         def make(H, S):
             if bshd:
@@ -537,21 +583,35 @@ def phase_attn_kernels(torch):
                                    device=dev).to(dt).transpose(1, 2)
             return torch.randn((B, H, S, D), generator=g, device=dev).to(dt)
         q, k, v = make(Hq, Sq), make(Hkv, Skv), make(Hkv, Skv)
-        o1 = attn_ops.flash_attention(q, k, v, causal=causal)
-        o2 = attn_ops.flash_attention(q, k, v, causal=causal)
+        kernel = attn_ops.route(dt, D)
+        before = route_counts(fa)
+        o1 = fa(q, k, v, causal=causal)
+        o2 = fa(q, k, v, causal=causal)
+        after = route_counts(fa)
         p = attn_ops.flash_attention_plain(q, k, v, causal=causal)
         lib = sdpa(q, k, v, is_causal=causal, enable_gqa=True)
         torch.cuda.synchronize()
         err = float((o1.float() - p.float()).abs().max())
         e_lib = float((lib.float() - p.float()).abs().max())
         tol = 2e-5 if dt == f32 else 2e-2
+        name = (f"K4 flash_attention [{kernel}] B={B} Hq={Hq} Hkv={Hkv} "
+                f"Sq={Sq} Skv={Skv} D={D} {str(dt)[6:]} "
+                f"{'causal' if causal else 'full'}{' bshd' if bshd else ''}")
+        routed = all(after[r] - before[r] == (2 if r == kernel else 0)
+                     for r in after)
         check(err <= tol and torch.equal(o1, o2) and o1.dtype == dt
-              and o1.shape == q.shape,
-              f"K4 flash_attention B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} "
-              f"Skv={Skv} D={D} {str(dt)[6:]} "
-              f"{'causal' if causal else 'full'}{' bshd' if bshd else ''}: "
-              f"err {err:.2e} <= {tol:g}, bitwise repeat (sdpa vs plain "
-              f"{e_lib:.2e})")
+              and o1.shape == q.shape and routed,
+              f"{name}: err {err:.2e} <= {tol:g}, bitwise repeat, routed "
+              f"to {kernel} (sdpa vs plain {e_lib:.2e})")
+        if kernel == "tc":
+            pb = attn_ops.flash_attention_plain(q, k, v, causal=causal,
+                                                p_dtype=bf16)
+            e_b = float((o1.float() - pb.float()).abs().max())
+            e_t = tc_err(torch, o1, pb)
+            check(e_t <= TC_ABS,
+                  f"{name}: vs the bf16-P plain version max err {e_b:.2e}; "
+                  f"beyond one output ulp (2^-7 |o|) {e_t:.2e} <= "
+                  f"{TC_ABS:g}")
 
 
 def phase_wkv_kernels(torch):
@@ -660,6 +720,7 @@ def rel_diffs(torch, got, want):
 
 def phase_lm(torch, rt, arch, sh, smoke: bool):
     import repro_torch.configs as configs
+    from repro_torch.kernels.flash_attn.ops import route
     from repro_torch.models.model import forward, init_params, loss_fn, \
         tree_map
 
@@ -693,7 +754,7 @@ def phase_lm(torch, rt, arch, sh, smoke: bool):
 
     with torch.inference_mode():
         # the main path: counts set to 0 just before and read just after
-        wrapper.launches = 0
+        zero_counts(wrapper)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -708,10 +769,18 @@ def phase_lm(torch, rt, arch, sh, smoke: bool):
         h_long, _ = forward(params, cfg, tokens=tokens)
         torch.cuda.synchronize()
         launches = wrapper.launches
+        routes = route_counts(wrapper)
         peak = torch.cuda.max_memory_allocated() / 1e9
         check(launches == 3 * cfg.num_layers,
               f"lm main path: {kname} launched {launches} times = "
               f"{cfg.num_layers} layers x 3 forwards")
+        if routes is not None:
+            # qwen3-8b: bf16 at head dim 128, every launch on the
+            # tensor-core kernel (the smoke config's head dim 16: FMA)
+            want = route(cfg.compute_dtype, cfg.head_dim)
+            check(routes == {r: launches * (r == want) for r in routes},
+                  f"lm main path: {kname} routes {routes}: all "
+                  f"{launches} on the {want} kernel")
         rt["launches"][kname] = launches
         print(f"lm forward {B}x{S}: {t_fwd:.3f} s "
               f"({B * S / t_fwd:.0f} tok/s); loss_fn {t_loss:.3f} s; "
@@ -780,13 +849,21 @@ def phase_lm(torch, rt, arch, sh, smoke: bool):
                               compute_dtype=torch.float32)
     params = init_params(cfg, g)
     with torch.inference_mode():
-        before = wrapper.launches
+        before, routes = wrapper.launches, route_counts(wrapper)
         h_k, _ = forward(params, cfg, tokens=tokens)
         h_x, _ = forward(params, cfg, tokens=tokens, **xla)
         torch.cuda.synchronize()
         check(wrapper.launches - before == cfg.num_layers,
               f"lm f32 {cfg.num_layers} layers: {kname} launched once a "
               "layer")
+        if routes is not None:
+            moved = {r: n - routes[r] for r, n in
+                     route_counts(wrapper).items()}
+            want = route(cfg.compute_dtype, cfg.head_dim)
+            check(want == "fma" and moved == {
+                      r: cfg.num_layers * (r == want) for r in moved},
+                  f"lm f32 {cfg.num_layers} layers: {kname} routes "
+                  f"{moved}: all on the FMA kernel")
         e = float((h_k - h_x).abs().max() / h_x.abs().max())
         check(bool(torch.isfinite(h_k).all()) and e <= 1e-4,
               f"lm f32 {cfg.num_layers} layers, {B}x{n_long}: {kname} vs "
@@ -851,12 +928,19 @@ def phase_attn_timing(torch, rt, reps: int, sh, smoke: bool):
     plain = lambda: attn_ops.flash_attention_plain(q, k, v, causal=True)
     lib = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
     o, p, yard = kern(), plain(), lib()
+    pb = attn_ops.flash_attention_plain(q, k, v, causal=True,
+                                        p_dtype=torch.bfloat16)
     err = float((o.float() - p.float()).abs().max())
     e_lib = float((yard.float() - p.float()).abs().max())
-    check(err <= 2e-2 and torch.equal(o, kern()),
+    e_t = tc_err(torch, o, pb)
+    tc = attn_ops.route(q.dtype, D) == "tc"    # not at the smoke config's D
+    check(err <= 2e-2 and (e_t <= TC_ABS or not tc)
+          and torch.equal(o, kern()),
           f"K4 at B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} bf16 causal: err "
-          f"{err:.2e} <= 2e-2, bitwise repeat (sdpa vs plain {e_lib:.2e})")
-    del o, p, yard
+          f"{err:.2e} <= 2e-2, vs bf16-P plain beyond one output ulp "
+          f"{e_t:.2e} <= {TC_ABS:g}, bitwise repeat (sdpa vs plain "
+          f"{e_lib:.2e})")
+    del o, p, pb, yard
     nflops = 4 * D * B * Hq * S * (S + 1) // 2
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     timer = Timer(torch, reps)
@@ -866,6 +950,21 @@ def phase_attn_timing(torch, rt, reps: int, sh, smoke: bool):
     print(f"K4 work: {nflops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
           f"{nflops / k_ms / 1e9:.2f} TFLOP/s achieved; bound at the FP32 "
           f"peak {nflops / rt['peaks'][1] * 1e3:.3f} ms", flush=True)
+    # the FMA route on f32 copies of the same inputs (same layout)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    fma = lambda: attn_ops.flash_attention(qf, kf, vf, causal=True)
+    before = attn_ops.flash_attention.launches_fma
+    of = fma()
+    pf = attn_ops.flash_attention_plain(qf, kf, vf, causal=True)
+    e_f = float((of - pf).abs().max())
+    check(attn_ops.flash_attention.launches_fma == before + 1
+          and e_f <= 1e-4,
+          f"K4 FMA route at the same shape, f32: err {e_f:.2e} <= 1e-4")
+    del of, pf
+    f_ms = timer(fma)
+    print(f"time K4 FMA route (flash_attn.cu), f32 inputs: {f_ms:.3f} ms, "
+          f"{nflops / f_ms / 1e9:.2f} TFLOP/s; bound at the FP32 peak "
+          f"{nflops / rt['peaks'][1] * 1e3:.3f} ms", flush=True)
 
 
 def wkv_work(B, H, T, hd, L):

@@ -1,5 +1,5 @@
 """Build and load the port's CUDA kernels (K1 prox, K2 gram, K3 admm_iter,
-K4 flash_attn, K5 wkv).
+K4 flash_attn and flash_attn_sm90, K5 wkv).
 
 The sources in ``csrc/`` have a plain C interface. ``library()`` compiles
 them with ONE ``nvcc`` call into a shared library under ``build/repro_torch/``
@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("prox.cu", "gram.cu", "admm_iter.cu", "flash_attn.cu",
-           "wkv.cu")
+           "flash_attn_sm90.cu", "wkv.cu")
 HEADERS = ("prox.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
@@ -45,6 +45,7 @@ SIGNATURES = {
                         _LL, _I, _I, _F, _F, _P),
     "repro_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I)
     + (_LL,) * 12 + (_F, _I, _P),
+    "repro_flash_attn_tc": (_P,) * 4 + (_I,) * 6 + (_LL,) * 12 + (_F, _I, _P),
     "repro_wkv": (_P,) * 7 + (_I,) * 6 + (_LL,) * 15 + (_F, _P),
 }
 

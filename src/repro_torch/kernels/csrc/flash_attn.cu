@@ -7,13 +7,17 @@
 // strides with a unit stride along D; o in q's type.
 //
 // Replaces repro/kernels/flash_attn/flash_attn.py::flash_attention_pallas
-// (`_flash_kernel`).
+// (`_flash_kernel`), with flash_attn_sm90.cu: this is K4's FP32-FMA route,
+// taken by f32 inputs at every head dim and by bf16 at head dim 16
+// (kernels/flash_attn/ops.py::route). bf16 at head dims 64 and 128, every
+// bf16 call of qwen3-8b, goes to the tensor-core kernel instead. f32 stays
+// here because TF32 would miss the f32 tolerance.
 //
 // Bound on the card: operations. A causal call does 4 D per visible
 // (q, k) pair, B Hq D Sq (Sq + 1) 2 FLOP when Sq = Skv: 275 GFLOP at the
 // qwen3-8b shape (B 2, Hq 32, S 4096, D 128) against 201 MB of q, k, v
-// and o: 4.10 ms at the FP32 peak, the rate this kernel's FP32 FMA can
-// reach, and 0.278 ms at the bf16 tensor-core peak (PERF.md).
+// and o (bf16; twice that in f32): 4.10 ms at the FP32 peak, the rate this
+// kernel's FP32 FMA can reach (PERF.md).
 //
 // Design. The TPU kernel ran a sequential grid whose innermost axis swept
 // the kv blocks, with the statistics resident in VMEM scratch. Here:
@@ -253,8 +257,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16. Strides in elements, (batch, head, seq) for
-// each of q, k, v, o. Returns cudaGetLastError() after the launch.
+// dtype: 0 float32 (D 16, 64, 128), 1 bfloat16 (D 16). Strides in
+// elements, (batch, head, seq) for each of q, k, v, o. Returns
+// cudaGetLastError() after the launch.
 extern "C" int repro_flash_attn(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Hq, int Hkv, int Sq, int Skv, int D, long long qsb, long long qsh,
@@ -270,8 +275,10 @@ extern "C" int repro_flash_attn(
   if (dtype == 0)
     return dispatch_d<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, sq, sk, sv,
                              so, scale, causal, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, sq,
-                                     sk, sv, so, scale, causal, s);
+  // bf16 comes here at head dim 16 only: at 64 and 128 it takes the
+  // tensor-core kernel (flash_attn_sm90.cu)
+  if (dtype == 1 && D == 16)
+    return launch<__nv_bfloat16, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, sq, sk,
+                                     sv, so, scale, causal, s);
   return cudaErrorInvalidValue;
 }

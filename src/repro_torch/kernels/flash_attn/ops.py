@@ -2,16 +2,32 @@
 ``repro/kernels/flash_attn/ops.py``.
 
 ``impl="cuda"`` takes the place of the reference's ``"pallas"``: CUDA
-tensors go to ``csrc/flash_attn.cu`` and count ``flash_attention.launches``;
-CPU tensors run the plain version (:func:`flash_attention_plain`); any other
-device raises. ``impl="xla"`` is the chunked online-softmax path
-(:func:`chunked_attention`, the reference's ``chunked_attention_xla``).
-``"pallas"`` and ``"pallas_interpret"`` have no counterpart and raise.
+tensors go to one of K4's two kernels, CPU tensors run the plain version
+(:func:`flash_attention_plain`), and any other device raises. The kernel is
+picked by :func:`route`, by dtype and head dim alone:
+
+* bf16 at head dims 64 and 128 (every bf16 call on qwen3-8b's path) ->
+  ``"tc"``, ``csrc/flash_attn_sm90.cu``: wgmma on the bf16 tensor cores
+  with TMA loads, P rounded to bf16 for the second product (as FA2 and
+  SDPA do; ``flash_attention_plain(p_dtype=torch.bfloat16)`` repeats that);
+  it also needs strides that are multiples of 8 elements and 16-byte
+  aligned addresses (TMA's rule), and raises otherwise;
+* f32 at any supported head dim, and bf16 at head dim 16 -> ``"fma"``,
+  ``csrc/flash_attn.cu``: FP32 FMA, P kept in f32 (TF32 would miss the f32
+  tolerance).
+
+Each launch adds one to ``flash_attention.launches`` and to its route's
+count, ``flash_attention.launches_tc`` or ``launches_fma``. A build or
+launch error raises; nothing falls back. ``impl="xla"`` is the chunked
+online-softmax path (:func:`chunked_attention`, the reference's
+``chunked_attention_xla``). ``"pallas"`` and ``"pallas_interpret"`` have no
+counterpart and raise.
 
 The TPU wrapper asserted Sq and Skv to be multiples of the block sizes; the
-CUDA kernel masks the ragged edges of both. Its q and kv tiles are 64 rows
-whatever ``block_q`` / ``block_k`` say: those set the tiles of the plain
-version and the query chunk of the ``xla`` path.
+CUDA kernels mask the ragged edges of both. Their tiles are fixed (64 rows
+in the FMA kernel, 128 in the tensor-core one) whatever ``block_q`` /
+``block_k`` say: those set the tiles of the plain version and the query
+chunk of the ``xla`` path.
 """
 from __future__ import annotations
 
@@ -21,8 +37,17 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 TILE = 64                       # q and kv tile rows in flash_attn.cu
-HEAD_DIMS = (16, 64, 128)       # head dims the kernel is built for
+HEAD_DIMS = (16, 64, 128)       # head dims the kernels are built for
+TC_HEAD_DIMS = (64, 128)        # head dims of the tensor-core kernel
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call goes to: ``"tc"`` (bf16 tensor cores,
+    flash_attn_sm90.cu) for bf16 at head dims 64 and 128, else ``"fma"``
+    (FP32 FMA, flash_attn.cu)."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS \
+        else "fma"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -42,21 +67,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_q=block_q, block_k=block_k)
-    out = _launch(q, k, v, causal, scale)
+    kernel = route(q.dtype, q.shape[-1])
+    out = _launch(q, k, v, causal, scale, kernel)
     flash_attention.launches += 1
+    if kernel == "tc":
+        flash_attention.launches_tc += 1
+    else:
+        flash_attention.launches_fma += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
+flash_attention.launches_fma = 0
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           scale: float | None = None, block_q: int = TILE,
-                          block_k: int = TILE) -> torch.Tensor:
-    """The kernel's plain version: the reference ``_flash_kernel`` step by
+                          block_k: int = TILE,
+                          p_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The kernels' plain version: the reference ``_flash_kernel`` step by
     step — per q block, a sweep over kv blocks (those wholly above the
     diagonal skipped) with f32 running max, denominator and accumulator,
-    masked scores at NEG_INF, and the final divide by max(l, 1e-30)."""
+    masked scores at NEG_INF, and the final divide by max(l, 1e-30).
+
+    ``p_dtype=None`` keeps P in f32, as the JAX kernel and the FMA kernel
+    do. ``p_dtype=torch.bfloat16`` rounds P to bf16 just before ``P V``,
+    where the tensor-core kernel does; the denominator still sums the
+    unrounded P."""
     B, Hq, Sq, D = q.shape
     _, Hkv, Skv, _ = k.shape
     if Hq % Hkv:
@@ -90,7 +128,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
             p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
             l = corr * l + p.sum(dim=-1, keepdim=True)
-            acc = corr * acc + p @ vb
+            pv = p if p_dtype is None else p.to(p_dtype).float()
+            acc = corr * acc + pv @ vb
             m = m_new
         out[..., q0:q0 + nq, :] = acc / torch.clamp(l, min=1e-30)
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
@@ -133,7 +172,7 @@ def chunked_attention(q, k, v, *, causal: bool, scale: float | None = None,
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
-def _launch(q, k, v, causal, scale):
+def _launch(q, k, v, causal, scale, kernel):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -160,11 +199,24 @@ def _launch(q, k, v, causal, scale):
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     o = torch.empty_like(q)       # q's layout: a transposed view stays one
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *o.stride()[:3])
     lib = build.library()
-    rc = lib.repro_flash_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        DTYPE_IDS[q.dtype], B, Hq, Hkv, Sq, Skv, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        float(scale), int(bool(causal)), build.stream_ptr(q))
-    build.check(rc, "flash_attention")
+    if kernel == "tc":
+        if Skv == 0 or any(st % 8 for st in strides) or any(
+                t.data_ptr() % 16 for t in (q, k, v, o)):
+            raise ValueError("flash_attention: the tensor-core kernel needs "
+                             "Skv > 0, strides that are multiples of 8 "
+                             "elements and 16-byte aligned tensors (TMA), "
+                             f"got strides {strides}")
+        rc = lib.repro_flash_attn_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, Hq, Hkv, Sq, Skv, D, *strides, float(scale),
+            int(bool(causal)), build.stream_ptr(q))
+    else:
+        rc = lib.repro_flash_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            DTYPE_IDS[q.dtype], B, Hq, Hkv, Sq, Skv, D, *strides,
+            float(scale), int(bool(causal)), build.stream_ptr(q))
+    build.check(rc, f"flash_attention ({kernel})")
     return o

@@ -129,6 +129,57 @@ def test_plain_version_is_repeatable_and_scaled():
     assert float((a - want).abs().max()) < 2e-5
 
 
+# bf16 cases of the reference (tests/test_kernels.py:98-103) and the model's
+# head dim 128 with GQA group 2, causal and not
+P_BF16_CASES = [c for c in CASES if c[6] == "bfloat16"] + [
+    (1, 4, 2, 256, 256, 128, "bfloat16", True),
+    (1, 4, 2, 128, 256, 128, "bfloat16", False),
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,D,dtype,causal", P_BF16_CASES)
+def test_bf16_p_plain_matches_jax_kernel(B, Hq, Hkv, Sq, Skv, D, dtype,
+                                         causal):
+    """The plain version with P rounded to bf16 (the tensor-core kernel's
+    arithmetic) against the JAX kernel, at the reference's bf16 bound."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(B, Hq, Hkv, Sq, Skv, D, dtype, 5)
+    want = _f32(_jax().flash(jq, jk, jv, causal=causal,
+                             impl="pallas_interpret", block_q=128,
+                             block_k=128))
+    got = tops.flash_attention_plain(tq, tk, tv, causal=causal,
+                                     block_q=128, block_k=128,
+                                     p_dtype=torch.bfloat16)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert np.abs(_f32(got) - want).max() < TDTYPES[dtype][1]
+
+
+@pytest.mark.parametrize("Sq,Skv,D,causal", [(256, 256, 128, True),
+                                             (100, 300, 64, True),
+                                             (130, 70, 64, False)])
+def test_bf16_p_plain_is_within_one_p_rounding_of_f32_p(Sq, Skv, D, causal):
+    """Rounding P to bf16 moves each weight p_j by at most 2^-8 p_j (bf16's
+    unit roundoff) while the denominator keeps the unrounded sum, so the
+    output moves by at most 2^-8 sum_j p_j |v_j| / l <= 2^-8 max |v|. Held
+    on f32 inputs, where no rounding of the output hides it; 1e-6 covers
+    the f32 sums."""
+    _, (tq, tk, tv) = _qkv(2, 4, 2, Sq, Skv, D, "float32", 6, False)
+    f32_p = tops.flash_attention_plain(tq, tk, tv, causal=causal)
+    bf16_p = tops.flash_attention_plain(tq, tk, tv, causal=causal,
+                                        p_dtype=torch.bfloat16)
+    diff = float((bf16_p - f32_p).abs().max())
+    assert 0 < diff <= 2.0 ** -8 * float(tv.abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 16, "fma"), (torch.float32, 128, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 16, "fma")])
+def test_route_rule(dtype, D, want):
+    """bf16 at head dims 64 and 128 takes the tensor-core kernel; f32 at
+    any head dim and bf16 at head dim 16 the FP32-FMA kernel."""
+    assert tops.route(dtype, D) == want
+
+
 def test_wrapper_routes_by_impl_and_device():
     _, (tq, tk, tv) = _qkv(1, 2, 1, 64, 64, 16, "float32", 4, False)
     for impl in ("pallas", "pallas_interpret"):
@@ -136,9 +187,13 @@ def test_wrapper_routes_by_impl_and_device():
             tops.flash_attention(tq, tk, tv, impl=impl)
     with pytest.raises(ValueError, match="unknown impl"):
         tops.flash_attention(tq, tk, tv, impl="triton")
-    before = tops.flash_attention.launches
+    counts = lambda: (tops.flash_attention.launches,
+                      tops.flash_attention.launches_tc,
+                      tops.flash_attention.launches_fma)
+    before = counts()
     tops.flash_attention(tq, tk, tv)               # CPU: plain, no launch
-    assert tops.flash_attention.launches == before
+    tops.flash_attention(tq.bfloat16(), tk.bfloat16(), tv.bfloat16())
+    assert counts() == before
     meta = [t.to("meta") for t in (tq, tk, tv)]    # neither CPU nor CUDA
     with pytest.raises(ValueError, match="no kernel for device meta"):
         tops.flash_attention(*meta)
@@ -150,18 +205,39 @@ def test_kernel_matches_plain_on_card():
         pytest.skip("needs a CUDA device (the kernel runs only on the card)")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    fa = tops.flash_attention
     for (B, Hq, Hkv, Sq, Skv, D, causal) in (
             (2, 4, 2, 256, 256, 64, True), (1, 8, 2, 1000, 1000, 128, True),
-            (1, 4, 1, 100, 300, 16, True), (2, 2, 2, 130, 70, 64, False)):
+            (1, 4, 1, 100, 300, 16, True), (2, 2, 2, 130, 70, 64, False),
+            # tensor-core shapes: Sq < Skv, ragged Skv, GQA group 2, one
+            # row, Sq > Skv, a tile and a row
+            (2, 4, 1, 300, 1000, 128, True), (1, 4, 2, 200, 333, 64, False),
+            (1, 32, 16, 384, 384, 128, True), (1, 2, 1, 1, 1, 64, True),
+            (1, 4, 2, 1000, 300, 128, True), (3, 6, 3, 129, 129, 64, False)):
         for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             q = torch.randn((B, Hq, Sq, D), generator=g, device=dev).to(dt)
             k = torch.randn((B, Hkv, Skv, D), generator=g, device=dev).to(dt)
             v = torch.randn((B, Hkv, Skv, D), generator=g, device=dev).to(dt)
-            o = tops.flash_attention(q, k, v, causal=causal)
-            o2 = tops.flash_attention(q, k, v, causal=causal)
+            kernel = tops.route(dt, D)
+            before = (fa.launches_tc, fa.launches_fma)
+            o = fa(q, k, v, causal=causal)
+            o2 = fa(q, k, v, causal=causal)
             p = tops.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
             assert torch.equal(o, o2)
             assert float((o.float() - p.float()).abs().max()) < tol
+            moved = (fa.launches_tc - before[0], fa.launches_fma - before[1])
+            assert moved == ((2, 0) if kernel == "tc" else (0, 2))
+            if kernel == "tc":
+                # chip_smoke.py's bound: one output ulp plus 2e-3
+                pb = tops.flash_attention_plain(q, k, v, causal=causal,
+                                                p_dtype=torch.bfloat16)
+                extra = (o.float() - pb.float()).abs() \
+                    - 2.0 ** -7 * pb.float().abs()
+                assert float(extra.max()) <= 2e-3
     with pytest.raises(ValueError, match="head dim 32"):
         tops.flash_attention(*(torch.zeros((1, 1, 8, 32), device=dev),) * 3)
+    # the tensor-core kernel's TMA needs strides in multiples of 8
+    x = torch.zeros((1, 1, 8, 68), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tops.flash_attention(*(x[..., :64],) * 3)
