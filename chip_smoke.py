@@ -12,9 +12,12 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
 3. kernels  — each kernel (K1 prox, K2a gram, K2b gram+rhs, K3 admm_iter,
               K4 flash attention, K5 wkv) against its plain PyTorch version
               on the card at ragged shapes, f32 and bf16, all five prox
-              kinds, K4's GQA groups, head dims and masks on both routes
-              (bf16 tensor cores; FMA), each call's route read from the
-              counters, the tensor-core cases also against the plain
+              kinds, K2a on a row-offset view (the same bits as on an
+              aligned copy), K3's two routes (the
+              ring for n <= 512; the wide kernel past it and pinned at
+              n = 307), K4's GQA groups, head dims and masks on both routes
+              (bf16 tensor cores; FMA), each K3 and K4 call's route read
+              from the counters, the tensor-core cases also against the plain
               version with P rounded to bf16, K5's head dims,
               chunks, layouts, final state and hard decay, and two
               identical calls compared bit for bit; then a small solve,
@@ -24,11 +27,14 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               card) solved by ``UnwrappedADMM.solve`` on the cuda backend,
               again with bf16 residency, and the SVM row of the fit table.
               The launch counters are set to 0 just before and read just
-              after; x is held against the reference backend on the card.
+              after (K3: all 600 on the ring route); x is held against the
+              reference backend on the card.
 5. timing   — each kernel at the main path's shapes against its plain
               version: median of CUDA-event times, its bound on this card,
               and the library yardstick where one PyTorch call computes the
-              same function.
+              same function (K2a must beat ``D.T @ D``); K3 on both routes
+              at the f32 shape and on the bf16 copy (the ring must beat the
+              wide kernel in f32).
    The ADMM tensors are then freed, and the LM slices run, qwen3-8b then
    rwkv6-1.6b, each at full width and depth (f32 weights, random from the
    seed; each freed before the next):
@@ -229,10 +235,13 @@ def phase_kernels(torch, rt):
             check(e <= 4e-6 and torch.equal(y1, y1b) and torch.equal(l1, l1b),
                   f"K1 prox {kind:13s} m={m}: rel err {e:.2e} <= 4e-6, "
                   "bitwise repeat")
-    # K2a / K2b: ragged n, f32 and bf16, RHS widths 1, 5 and 70
+    # K2a / K2b: ragged n, f32 and bf16, RHS widths 1, 5 and 70; K2a also
+    # on a row-offset view (its base off 16-byte alignment), which must give
+    # the bits of an aligned copy
     for (m, n) in ((1000, 33), (1000, 307), (4099, 130)):
         for dt in (torch.float32, torch.bfloat16):
-            D = randn(m, n).to(dt)
+            base = randn(m + 3, n).to(dt)
+            D = base[:m]
             G1 = gram_ops.gram(D)
             G1b = gram_ops.gram(D)
             G2 = gram_ops.gram_plain(D)
@@ -241,6 +250,11 @@ def phase_kernels(torch, rt):
                   and torch.equal(G1, G1.T),
                   f"K2a gram m={m} n={n} {str(dt)[6:]}: err {e:.2e} <= 1e-5,"
                   " bitwise repeat, exactly symmetric")
+            Gv, Gc = gram_ops.gram(base[3:]), gram_ops.gram(base[3:].clone())
+            e = gram_err(torch, Gv, gram_ops.gram_plain(base[3:]))
+            check(e <= 1e-5 and torch.equal(Gv, Gc),
+                  f"K2a gram m={m} n={n} {str(dt)[6:]} row-offset view: err "
+                  f"{e:.2e} <= 1e-5, bitwise equal to an aligned copy")
             for r in (0, 5, 70):
                 b = randn(m, r) if r else randn(m)
                 G1, C1 = gram_ops.gram_and_rhs(D, b)
@@ -251,33 +265,49 @@ def phase_kernels(torch, rt):
                       and C1.shape == C2.shape,
                       f"K2b gram+rhs m={m} n={n} r={r} {str(dt)[6:]}: "
                       f"err {e:.2e} <= 1e-5, bitwise repeat")
-    # K3: five kinds at n = 307 f32, ragged shapes, bf16
-    cases = [(1000, 307, torch.float32, k) for k in KINDS] + [
-        (1000, 33, torch.float32, "logistic"),
-        (1000, 307, torch.bfloat16, "logistic"),
-        (70001, 307, torch.float32, "hinge"),
-        (3000, 2050, torch.float32, "logistic")]
-    for m, n, dt, kind in cases:
-        D = randn(m, n).to(dt)
+    # K3: five kinds at n = 307 f32, ragged and even n, bf16, both routes
+    # (the ring for n <= 512, the wide kernel past it or when pinned), D
+    # aligned and as a row-offset view; each call's route from the counters
+    from repro_torch.engine import autotune
+    k3 = iter_ops.admm_iter_full
+    cases = [(1000, 307, torch.float32, k, None) for k in KINDS] + [
+        (1000, 33, torch.float32, "logistic", None),
+        (999, 128, torch.float32, "logistic", None),
+        (1000, 307, torch.bfloat16, "logistic", None),
+        (3001, 512, torch.bfloat16, "quantile", None),
+        (70001, 307, torch.float32, "hinge", None),
+        (3000, 2050, torch.float32, "logistic", None),
+        (4099, 307, torch.float32, "logistic", "wide"),
+        (4099, 307, torch.bfloat16, "l1", "wide")]
+    for m, n, dt, kind, pin in cases:
+        base = randn(m + 1, n).to(dt)
         aux = torch.sign(randn(m))
         y, lam, x = randn(m), randn(m), 0.1 * randn(n)
         a = None if kind == "l1" else aux
         p = 0.3 if kind == "quantile" else 0.0
-        out1 = iter_ops.admm_iter_full(D, a, y, lam, x, kind=kind, delta=2.0,
-                                       param=p)
-        out1b = iter_ops.admm_iter_full(D, a, y, lam, x, kind=kind,
-                                        delta=2.0, param=p)
-        out2 = iter_ops.admm_iter_plain(D, a, y, lam, x, kind=kind,
-                                        delta=2.0, param=p)
-        e_yl = max(rel_err(torch, out1[0], out2[0]),
-                   rel_err(torch, out1[1], out2[1]))
-        e_dwv = max(float((u - v).abs().max() / v.abs().max().clamp(min=1))
-                    for u, v in zip(out1[2:], out2[2:]))
-        same = all(torch.equal(u, v) for u, v in zip(out1, out1b))
-        check(e_yl <= 2e-5 and e_dwv <= 2e-5 and same,
-              f"K3 admm_iter {kind:13s} m={m} n={n} {str(dt)[6:]}: y/lam "
-              f"err {e_yl:.2e} <= 2e-5, d/w/v err {e_dwv:.2e} <= 2e-5, "
-              "bitwise repeat")
+        key = ("iter", m, n, str(dt)[6:])
+        if pin:
+            autotune.CACHE[key] = autotune._wide_grid(m, n)
+        want = iter_ops.route(m, n, dt)
+        for view, D in (("", base[:m]), (" row-offset view", base[1:])):
+            before = route_counts(k3)
+            out1 = k3(D, a, y, lam, x, kind=kind, delta=2.0, param=p)
+            out1b = k3(D, a, y, lam, x, kind=kind, delta=2.0, param=p)
+            moved = {r: c - before[r] for r, c in route_counts(k3).items()}
+            out2 = iter_ops.admm_iter_plain(D, a, y, lam, x, kind=kind,
+                                            delta=2.0, param=p)
+            e_yl = max(rel_err(torch, out1[0], out2[0]),
+                       rel_err(torch, out1[1], out2[1]))
+            e_dwv = max(float((u - v).abs().max() / v.abs().max().clamp(
+                min=1)) for u, v in zip(out1[2:], out2[2:]))
+            same = all(torch.equal(u, v) for u, v in zip(out1, out1b))
+            check(e_yl <= 2e-5 and e_dwv <= 2e-5 and same
+                  and moved == {r: 2 * (r == want) for r in moved},
+                  f"K3 admm_iter [{want}] {kind:13s} m={m} n={n} "
+                  f"{str(dt)[6:]}{view}: y/lam err {e_yl:.2e} <= 2e-5, "
+                  f"d/w/v err {e_dwv:.2e} <= 2e-5, bitwise repeat")
+        if pin:
+            del autotune.CACHE[key]
     # small end-to-end parity: cuda backend vs reference backend, fixed
     # iteration count (tests/test_engine.py::_run_parity tolerances)
     D = randn(4, 250, 20)
@@ -328,7 +358,7 @@ def phase_main(torch, rt, rows: int, iters: int):
     svm = dict(loss=make_hinge(1.0), tau=0.5, rho=1.0)
     for fn in (prox_ops.prox_update, gram_ops.gram, gram_ops.gram_and_rhs,
                iter_ops.admm_iter_full):
-        fn.launches = 0
+        zero_counts(fn)
     torch.cuda.reset_peak_memory_stats()
     runs = {}
     for label, kw, extra in (("f32", logistic, {}),
@@ -354,6 +384,9 @@ def phase_main(torch, rt, rows: int, iters: int):
     check(launches["K3_admm_iter"] == total_iters,
           f"main path: K3 launched {launches['K3_admm_iter']} times = "
           f"{total_iters} iterations")
+    k3_routes = route_counts(iter_ops.admm_iter_full)
+    check(k3_routes == {"ring": total_iters, "wide": 0},
+          f"main path: K3 routes {k3_routes}: all on the ring kernel")
     rt["launches"] = launches
 
     for label, (res, secs, solver) in runs.items():
@@ -456,10 +489,17 @@ def phase_timing(torch, rt, reps: int):
     e = gram_err(torch, G1, G2)
     check(e <= 1e-4 and torch.equal(G1, gram_ops.gram(D)),
           f"K2a at {m}x{n}: err {e:.2e} <= 1e-4, bitwise repeat")
-    record(rt, "K2a_gram", float((G1 - G2).abs().max()), timer(
-        lambda: gram_ops.gram(D)), timer(lambda: gram_ops.gram_plain(D)),
-        bound(rt, m * n * 4 + n * n * 4, m * n * n),
-        timer(lambda: D.T @ D))
+    k2a_ms = timer(lambda: gram_ops.gram(D))
+    lib_ms = timer(lambda: D.T @ D)
+    record(rt, "K2a_gram", float((G1 - G2).abs().max()), k2a_ms,
+           timer(lambda: gram_ops.gram_plain(D)),
+           bound(rt, m * n * 4 + n * n * 4, m * n * n), lib_ms)
+    nt = -(-n // 64)
+    print(f"K2a: {m * n * n / k2a_ms / 1e9:.1f} TFLOP/s of m n^2, "
+          f"{m * nt * (nt + 1) * 4096 / k2a_ms / 1e9:.1f} TFLOP/s of the "
+          f"{nt * (nt + 1) // 2} upper 64x64 tiles; D.T @ D {lib_ms:.3f} ms",
+          flush=True)
+    check(k2a_ms < lib_ms, f"K2a {k2a_ms:.3f} ms < D.T @ D {lib_ms:.3f} ms")
     # the Gram's own accuracy: K2a, its plain version and the library call
     # against a float64 Gram of the same D (Cauchy-Schwarz scale)
     G64 = torch.zeros((n, n), dtype=torch.float64, device=D.device)
@@ -488,37 +528,61 @@ def phase_timing(torch, rt, reps: int):
                  m * n * n + 2 * m * n), None)
     del G1, G2
 
-    # K3 at the main path's D, f32, from the solution's iterates
-    k3 = lambda: iter_ops.admm_iter_full(D, a, y, lam, x, kind="logistic",
-                                         delta=delta)
+    # K3 at the main path's D, f32, from the solution's iterates: the ring
+    # route (the main path's) in the record, the wide route pinned to the
+    # same shape beside it, then both on the bf16 copy (printed)
+    from repro_torch.engine import autotune
+    k3 = lambda DD: (lambda: iter_ops.admm_iter_full(
+        DD, a, y, lam, x, kind="logistic", delta=delta))
     p3 = lambda: iter_ops.admm_iter_plain(D, a, y, lam, x, kind="logistic",
                                           delta=delta)
-    o1, o2 = k3(), p3()
+    check(iter_ops.route(m, n, D.dtype) == "ring",
+          f"K3 at {m}x{n} f32 routes to the ring kernel")
+    o1, o2 = k3(D)(), p3()
     e_yl = max(rel_err(torch, o1[0], o2[0]), rel_err(torch, o1[1], o2[1]))
     e_dwv = max(float((u - v).abs().max() / v.abs().max().clamp(min=1))
                 for u, v in zip(o1[2:], o2[2:]))
-    same = all(torch.equal(u, v) for u, v in zip(o1, k3()))
+    same = all(torch.equal(u, v) for u, v in zip(o1, k3(D)()))
     check(e_yl <= 4e-6 and e_dwv <= 1e-4 and same,
           f"K3 at {m}x{n}: y/lam err {e_yl:.2e} <= 4e-6, d/w/v err "
           f"{e_dwv:.2e} <= 1e-4, bitwise repeat")
     err = max(float((u - v).abs().max()) for u, v in zip(o1, o2))
-    record(rt, "K3_admm_iter", err, timer(k3), timer(p3),
-           bound(rt, m * n * 4 + 5 * m * 4 + 4 * n * 4,
-                 m * (8 * n + PROX_FLOPS["logistic"])), None)
     del o1, o2
-    # bf16 residency: the same kernel on the bf16 copy (printed, not in
-    # the kernels record: the record holds the main path's f32 shapes)
     Db = D.to(torch.bfloat16)
-    kb = lambda: iter_ops.admm_iter_full(Db, a, y, lam, x, kind="logistic",
-                                         delta=delta)
-    ob, pb = kb(), iter_ops.admm_iter_plain(Db, a, y, lam, x,
-                                            kind="logistic", delta=delta)
-    e_yl = max(rel_err(torch, ob[0], pb[0]), rel_err(torch, ob[1], pb[1]))
-    check(e_yl <= 4e-6, f"K3 bf16 at {m}x{n}: y/lam err {e_yl:.2e}")
-    tb = bound(rt, m * n * 2 + 5 * m * 4 + 4 * n * 4,
-               m * (8 * n + PROX_FLOPS["logistic"]))
-    print(f"time K3_admm_iter bf16 D: kernel {timer(kb):.3f} ms, bound "
-          f"{tb[0]:.3f} ms ({tb[1]})", flush=True)
+    nflops = m * (8 * n + PROX_FLOPS["logistic"])
+    times = {}
+    for label, DD in (("f32", D), ("bf16", Db)):
+        nbytes = m * n * DD.element_size() + 5 * m * 4 + 4 * n * 4
+        tb = bound(rt, nbytes, nflops)
+        for route in ("ring", "wide"):
+            key = ("iter", m, n, str(DD.dtype)[6:])
+            if route == "wide":
+                autotune.CACHE[key] = autotune._wide_grid(m, n)
+            try:
+                if label == "bf16" or route == "wide":
+                    ob = k3(DD)()
+                    pb = iter_ops.admm_iter_plain(DD, a, y, lam, x,
+                                                  kind="logistic",
+                                                  delta=delta)
+                    e = max(rel_err(torch, ob[0], pb[0]),
+                            rel_err(torch, ob[1], pb[1]))
+                    check(e <= 4e-6, f"K3 {route} {label} at {m}x{n}: "
+                          f"y/lam err {e:.2e} <= 4e-6")
+                    del ob, pb
+                times[label, route] = timer(k3(DD))
+            finally:
+                if route == "wide":
+                    del autotune.CACHE[key]
+            t = times[label, route]
+            print(f"time K3_admm_iter [{route}] {label} D: kernel {t:.3f} "
+                  f"ms, {nbytes / t / 1e6:.0f} GB/s, bound {tb[0]:.3f} ms "
+                  f"({tb[1]})", flush=True)
+    check(times["f32", "ring"] < times["f32", "wide"],
+          f"K3 ring {times['f32', 'ring']:.3f} ms < wide "
+          f"{times['f32', 'wide']:.3f} ms at {m}x{n} f32")
+    record(rt, "K3_admm_iter", err, times["f32", "ring"], timer(p3),
+           bound(rt, m * n * 4 + 5 * m * 4 + 4 * n * 4, nflops), None)
+    del Db
 
 
 # K4's tensor-core kernel against the plain version with P rounded to bf16
@@ -538,16 +602,17 @@ def tc_err(torch, got, want) -> float:
 
 
 def route_counts(wrapper):
-    """K4's per-route launch counts, or None for a one-kernel wrapper."""
-    if not hasattr(wrapper, "launches_tc"):
-        return None
-    return {"tc": wrapper.launches_tc, "fma": wrapper.launches_fma}
+    """A two-kernel wrapper's per-route launch counts (K3: ring, wide; K4:
+    tc, fma), or None for a one-kernel wrapper."""
+    routes = {k[len("launches_"):]: v for k, v in vars(wrapper).items()
+              if k.startswith("launches_")}
+    return routes or None
 
 
 def zero_counts(wrapper):
     wrapper.launches = 0
-    if route_counts(wrapper) is not None:
-        wrapper.launches_tc = wrapper.launches_fma = 0
+    for r in route_counts(wrapper) or ():
+        setattr(wrapper, f"launches_{r}", 0)
 
 
 def phase_attn_kernels(torch):

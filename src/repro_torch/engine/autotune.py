@@ -8,20 +8,30 @@ overridable by pinning an entry before the first resolve.
 
 Budgets:
 
-  * CUDA fused iteration (K3, ``csrc/admm_iter.cu``): a CTA stages an
-    (R, n) f32 panel plus x and the (3, n) accumulators in shared memory,
-    ``(R n + 4 n + 128) * 4`` bytes. A block may use 227 KB
-    (``SMEM_PER_BLOCK``); the model keeps a CTA under ``SMEM_TARGET`` so
-    that four fit on one SM and the loads of one overlap the prox of
-    another, and takes R = 32 (one prox lane per row of warp 0) where that
-    fits. The grid is ``CTAS_PER_SM * SM_COUNT`` CTAs; it depends on the
-    shapes only, so the order of the reductions, and hence the bits, do
+  * CUDA fused iteration (K3, ``csrc/admm_iter.cu``), two routes picked by
+    n and dtype alone (``iter_grid``):
+      - ``"ring"`` for n <= ``RING_MAX_N``: one CTA per SM of W consumer
+        warps and one producer warp; panels of R <= 32 rows (a lane per
+        row) stream through a ring of S shared-memory stages of
+        ``R n dsize + 16`` bytes each, beside x and the warps' row weights
+        (``ring_smem``), within one block's 227 KB (``SMEM_PER_BLOCK``).
+        W and R maximise the rows held at once, W x R, with S = W + 1 (at
+        least one stage always in flight); S then grows to what fits, at
+        most 16 (n = 307: W 8, R 20, S 9 in f32; W 8, R 32, S 11 in bf16);
+      - ``"wide"`` for larger n: 256 threads stage an (R, n) f32 panel plus
+        x and the (3, n) accumulators, ``(R n + 4 n + 128) * 4`` bytes; the
+        model keeps a CTA under ``WIDE_SMEM_TARGET`` where R = 1 fits, so
+        that four share an SM, and takes R = 32 where that fits; n past
+        ~11k does not fit even at R = 1 and raises.
+    The grid depends on the shapes only (``SM_COUNT`` is a constant, not
+    the card's), so the order of the reductions, and hence the bits, do
     not depend on the card.
-  * CUDA Gram (K2, ``csrc/gram.cu``): 64x64 output tiles of 256 threads,
-    4x4 per thread (16 accumulators + 16 partials + 16 RHS registers,
-    well inside 65,536 registers per SM at 255 a thread), 24 KB of static
-    shared memory. m is split so that tiles x splits is about
-    ``GRAM_CTAS`` CTAs.
+  * CUDA Gram (K2a, ``csrc/gram.cu``): 64x64 output tiles of 64 threads,
+    8x8 per thread (64 accumulators + 64 partials), and a ring of two
+    64-row panels of two 64-column stripes, 64 KB: three CTAs per SM.
+    m is split in multiples of ``GRAM_PANEL`` rows so that tiles x splits
+    is at most ``GRAM_CTAS``, four full waves of three CTAs per SM. K2b
+    (Gram + RHS) takes the same splits.
   * chunked backend (a Python loop of torch ops over row blocks): on the
     CPU, ``CACHE_BUDGET`` stands for the last-level-cache slice one core
     keeps hot between the Dx and D^T products of a block; on the card,
@@ -30,19 +40,36 @@ Budgets:
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 SMEM_PER_BLOCK = 227 * 1024        # bytes of shared memory a block may use
 SM_COUNT = 132                     # H100 SXM
-SMEM_TARGET = 56 * 1024            # per K3 CTA: four CTAs per SM
-CTAS_PER_SM = 4
-GRAM_CTAS = 8 * SM_COUNT
+RING_ROWS = 32                     # K3 ring: rows per stage, one per lane
+RING_MAX_N = 512                   # K3 ring: 16 columns per lane
+RING_MAX_STAGES = 16
+RING_MAX_WARPS = 8
+RING_BAR_BYTES = 2 * RING_MAX_STAGES * 8
+WIDE_SMEM_TARGET = 56 * 1024       # per K3 wide CTA: four CTAs per SM
+WIDE_CTAS_PER_SM = 4
+GRAM_PANEL = 64                    # K2a rows per staged panel
+GRAM_CTAS = 4 * 3 * SM_COUNT       # four waves of three K2a CTAs per SM
 # Last-level-cache slice assumed hot per chunked stream on the CPU.
 CACHE_BUDGET = 2 * 1024 * 1024
 # f32 bytes of one upcast row block for torch-op loops over a CUDA D.
 DEVICE_BLOCK_BUDGET = 256 * 1024 * 1024
+
+
+class IterGrid(NamedTuple):
+    """K3's launch shape: route ``"ring"`` or ``"wide"``, rows per panel,
+    CTAs, ring stages and consumer warps (the wide route: 1 and 8)."""
+    route: str
+    rows: int
+    ctas: int
+    stages: int
+    warps: int
+
 
 # (kind, m, n, dtype_name[, device]) -> chosen block size(s); pin to override.
 CACHE: Dict[Tuple, Tuple] = {}
@@ -66,20 +93,64 @@ def _name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def iter_grid(m: int, n: int, dtype) -> Tuple[int, int]:
-    """(rows per panel R, CTAs) for the fused CUDA iteration kernel."""
+def ring_smem(n: int, dsize: int, stages: int, warps: int,
+              rows: int = RING_ROWS) -> int:
+    """Shared-memory bytes of the K3 ring kernel (``csrc/admm_iter.cu``:
+    ``ring_fixed_bytes`` + stages x ``ring_stage_bytes``)."""
+    stage = -(-(rows * n * dsize + 16) // 16) * 16
+    fixed = RING_BAR_BYTES + -(-n // 4) * 16 + warps * 3 * RING_ROWS * 4
+    return fixed + stages * stage
+
+
+def iter_grid(m: int, n: int, dtype) -> IterGrid:
+    """K3's route and grid for an (m, n) D of ``dtype``."""
     key = ("iter", int(m), int(n), _name(dtype))
     if key not in CACHE:
-        fixed = (4 * n + 128) * 4
-        budget = SMEM_TARGET if fixed + n * 4 <= SMEM_TARGET \
-            else SMEM_PER_BLOCK
-        R = min(32, (budget - fixed) // (4 * n))
-        if R < 1:
-            raise ValueError(
-                f"n={n} columns do not fit the fused iteration kernel's "
-                f"shared memory ({SMEM_PER_BLOCK} bytes per block)")
-        CACHE[key] = (R, max(1, min(CTAS_PER_SM * SM_COUNT, -(-m // R))))
-    return CACHE[key]
+        CACHE[key] = _ring_grid(m, n, _dsize(dtype)) \
+            or _wide_grid(m, n)
+    return IterGrid(*CACHE[key])
+
+
+def _ring_grid(m, n, dsize):
+    """The ring's shape, or None when n is past it. A row stays in shared
+    memory from its Dx through the prox to the sweep, so the rows held at
+    once, W x R (consumer warps x rows per stage), set the pace of a
+    costly prox: W and R maximise W x R with S = W + 1 stages (R a multiple
+    of the rows that make 16 bytes, where that leaves one), then S grows to
+    what fits, at most 16."""
+    if n > RING_MAX_N:
+        return None
+    unit = 16 // dsize
+    best = None
+    for warps in range(RING_MAX_WARPS, 0, -1):
+        room = SMEM_PER_BLOCK - ring_smem(n, dsize, 0, warps)
+        rows = min(RING_ROWS, ((room // (warps + 1)) // 16 * 16 - 16)
+                   // (n * dsize))
+        rows = rows // unit * unit if rows >= unit else rows
+        if rows >= 1 and (best is None or warps * rows > best[0] * best[1]):
+            best = (warps, rows)
+    if best is None:
+        return None
+    warps, rows = best
+    room = SMEM_PER_BLOCK - ring_smem(n, dsize, 0, warps)
+    stages = min(RING_MAX_STAGES,
+                 room // (ring_smem(n, dsize, 1, 0, rows)
+                          - ring_smem(n, dsize, 0, 0, rows)))
+    ctas = max(1, min(SM_COUNT, -(-m // rows)))
+    return ("ring", rows, ctas, stages, warps)
+
+
+def _wide_grid(m, n):
+    fixed = (4 * n + 128) * 4
+    budget = WIDE_SMEM_TARGET if fixed + n * 4 <= WIDE_SMEM_TARGET \
+        else SMEM_PER_BLOCK
+    R = min(32, (budget - fixed) // (4 * n))
+    if R < 1:
+        raise ValueError(
+            f"n={n} columns do not fit the fused iteration kernel's "
+            f"shared memory ({SMEM_PER_BLOCK} bytes per block)")
+    return ("wide", R, max(1, min(WIDE_CTAS_PER_SM * SM_COUNT, -(-m // R))),
+            1, 8)
 
 
 def gram_splits(m: int, n: int, dtype) -> int:
@@ -88,7 +159,8 @@ def gram_splits(m: int, n: int, dtype) -> int:
     if key not in CACHE:
         nt = -(-n // 64)
         tiles = nt * (nt + 1) // 2
-        CACHE[key] = (max(1, min(-(-GRAM_CTAS // tiles), -(-m // 32))),)
+        CACHE[key] = (max(1, min(GRAM_CTAS // tiles,
+                                 -(-m // GRAM_PANEL))),)
     return CACHE[key][0]
 
 

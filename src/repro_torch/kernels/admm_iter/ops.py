@@ -1,10 +1,23 @@
 """K3 wrappers: the fused iteration body returning (y', lam', d, w, v);
 port of ``repro/kernels/admm_iter/ops.py``.
 
-CUDA tensors go to ``csrc/admm_iter.cu``; CPU tensors run the plain
-version :func:`admm_iter_plain`; any other device raises. The TPU wrapper
-zero-padded the rows to a block multiple; the CUDA kernel masks the ragged
-end of m, so no pad row exists.
+CUDA tensors go to one of K3's two kernels in ``csrc/admm_iter.cu``; CPU
+tensors run the plain version :func:`admm_iter_plain`; any other device
+raises. The kernel is picked by :func:`route`, by n and dtype alone
+(``engine/autotune.py::iter_grid``):
+
+* ``"ring"`` for n <= 512 (the main path's n = 307): a producer thread
+  streams panels of up to 32 rows through a ring of shared-memory stages
+  with bulk copies, and every consumer warp runs Dx, the prox and the
+  sweep with a lane per row;
+* ``"wide"`` for larger n: panels staged by the whole CTA, the prox on one
+  warp, up to n ~ 11k.
+
+Each launch adds one to ``admm_iter_full.launches`` and to its route's
+count, ``admm_iter_full.launches_ring`` or ``launches_wide``. A build or
+launch error raises; nothing falls back. The TPU wrapper zero-padded the
+rows to a block multiple; the CUDA kernels mask the ragged end of m, so no
+pad row exists.
 """
 from __future__ import annotations
 
@@ -62,26 +75,45 @@ def admm_iter_full(D, aux, y, lam, x, *, kind: str, delta: float,
     _check(D, aux, y, lam, x)
     m, n = D.shape
     from repro_torch.engine import autotune
-    R, nctas = autotune.iter_grid(m, n, D.dtype)
-    rows_per_cta = -(-m // nctas)
-    rows_per_cta = -(-rows_per_cta // R) * R
+    grid = autotune.iter_grid(m, n, D.dtype)
+    rows_per_cta = -(-m // grid.ctas)
+    rows_per_cta = -(-rows_per_cta // grid.rows) * grid.rows
     nctas = -(-m // rows_per_cta)
     dev = D.device
     y_new = torch.empty((m,), dtype=torch.float32, device=dev)
     lam_new = torch.empty_like(y_new)
     part = torch.empty((nctas, 3, n), dtype=torch.float32, device=dev)
     out = torch.empty((3, n), dtype=torch.float32, device=dev)
-    rc = build.library().repro_admm_iter(
-        D.data_ptr(), DTYPE_IDS[D.dtype], x.data_ptr(), y.data_ptr(),
-        lam.data_ptr(), build.ptr(aux), y_new.data_ptr(), lam_new.data_ptr(),
-        part.data_ptr(), out.data_ptr(), m, n, R, rows_per_cta, nctas,
-        KIND_IDS[kind], float(delta), float(param), build.stream_ptr(D))
+    lib = build.library()
+    args = (D.data_ptr(), DTYPE_IDS[D.dtype], x.data_ptr(), y.data_ptr(),
+            lam.data_ptr(), build.ptr(aux), y_new.data_ptr(),
+            lam_new.data_ptr(), part.data_ptr(), out.data_ptr(), m, n)
+    tail = (KIND_IDS[kind], float(delta), float(param), build.stream_ptr(D))
+    if grid.route == "ring":
+        rc = lib.repro_admm_iter_ring(*args, rows_per_cta, grid.rows, nctas,
+                                      grid.stages, grid.warps, *tail)
+    else:
+        rc = lib.repro_admm_iter(*args, grid.rows, rows_per_cta, nctas,
+                                 *tail)
     build.check(rc, "admm_iter_full")
     admm_iter_full.launches += 1
+    if grid.route == "ring":
+        admm_iter_full.launches_ring += 1
+    else:
+        admm_iter_full.launches_wide += 1
     return y_new, lam_new, out[0], out[1], out[2]
 
 
 admm_iter_full.launches = 0
+admm_iter_full.launches_ring = 0
+admm_iter_full.launches_wide = 0
+
+
+def route(m: int, n: int, dtype: torch.dtype) -> str:
+    """The kernel a CUDA call on an (m, n) D goes to: ``"ring"`` for
+    n <= 512, else ``"wide"`` (or what a pinned grid says)."""
+    from repro_torch.engine import autotune
+    return autotune.iter_grid(m, n, dtype).route
 
 
 def admm_iter(D, aux, y, lam, x, *, kind: str, delta: float):

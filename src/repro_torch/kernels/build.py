@@ -2,13 +2,14 @@
 K4 flash_attn and flash_attn_sm90, K5 wkv).
 
 The sources in ``csrc/`` have a plain C interface. ``library()`` compiles
-them with ONE ``nvcc`` call into a shared library under ``build/repro_torch/``
-at the root of the checkout, named by a hash of the sources and flags, and
-loads it with ``ctypes``. A second call in the same process, or a later
+them with one ``nvcc -c`` per source, all started together, links the
+objects into a shared library under ``build/repro_torch/`` at the root of
+the checkout, named by a hash of the sources and flags, and loads it with
+``ctypes``. A second call in the same process, or a later
 process that finds the library already built, skips the compiler.
 
-Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` and deliberately no ``--use_fast_math``: the logistic
+Flags: ``-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC`` and deliberately no ``--use_fast_math``: the logistic
 prox bisects on the sign of phi' near its root, so expf and division stay
 IEEE. Every C entry point returns ``cudaGetLastError()``; :func:`check`
 raises on anything but 0. Nothing here catches a build or launch error.
@@ -29,7 +30,7 @@ SOURCES = ("prox.cu", "gram.cu", "admm_iter.cu", "flash_attn.cu",
            "flash_attn_sm90.cu", "wkv.cu")
 HEADERS = ("prox.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+         "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 _P = ctypes.c_void_p
@@ -43,6 +44,8 @@ SIGNATURES = {
                    _I, _I, _P),
     "repro_admm_iter": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
                         _LL, _I, _I, _F, _F, _P),
+    "repro_admm_iter_ring": (_P, _I) + (_P,) * 8 + (_LL, _I, _LL, _I, _I,
+                                                      _I, _I, _I, _F, _F, _P),
     "repro_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I)
     + (_LL,) * 12 + (_F, _I, _P),
     "repro_flash_attn_tc": (_P,) * 4 + (_I,) * 6 + (_LL,) * 12 + (_F, _I, _P),
@@ -80,15 +83,27 @@ def build(out_dir: Path = BUILD_DIR) -> Path:
     if out.exists():
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc(), *FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)          # atomic: a concurrent builder loses nothing
+    tmp_dir = Path(tempfile.mkdtemp(dir=out_dir))
+    objs = [tmp_dir / f"{Path(s).stem}.o" for s in SOURCES]
+    cmds = [[nvcc(), *FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    runs = [(c, p.returncode, *o) for c, p, o in zip(cmds, procs, outs)]
+    lib = tmp_dir / "lib.so"
+    link = [nvcc(), "-shared", "-o", str(lib), *map(str, objs)]
+    if all(rc == 0 for _, rc, _, _ in runs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, proc.returncode, proc.stdout, proc.stderr))
+    failed = [r for r in runs if r[1] != 0]
+    if failed:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        cmd, rc, so, se = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{so}{se}")
+    os.replace(lib, out)          # atomic: a concurrent builder loses nothing
+    shutil.rmtree(tmp_dir, ignore_errors=True)
     return out
 
 

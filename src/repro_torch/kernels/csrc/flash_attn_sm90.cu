@@ -465,7 +465,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
                                 CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled from the driver, found at run time, so the build
-// stays one nvcc call with no link to libcuda.
+// needs no link to libcuda.
 EncodeTiled encoder() {
   static const EncodeTiled fn = [] {
     void* p = nullptr;

@@ -1,4 +1,4 @@
-// K2: G = D^T D and, optionally, C = D^T B in one read of D.
+// K2: G = D^T D (K2a) and, optionally, C = D^T B in one read of D (K2b).
 //
 // Replaces repro/kernels/gram/gram.py::gram_pallas (`_gram_kernel`, K2a)
 // and gram_rhs_pallas (`_gram_rhs_kernel`, K2b).
@@ -8,31 +8,61 @@
 // per byte of f32 D, far above the card's FP32 ridge. TF32 tensor cores
 // are not used: they miss the reference tolerances.
 //
-// Design. The TPU ran the m-reduction innermost on one core, keeping each
-// output tile resident. Here m is split across CTAs instead:
-//   * pass 1: CTA (tile, split) owns one 64x64 output tile with
-//     tile_i <= tile_j and a contiguous range of rows. It stages 32-row
-//     panels of the two column stripes of D in shared memory (upcast to
-//     f32 on the way in, ragged n and m masked to 0), and each of its 256
-//     threads accumulates a 4x4 block in registers: a per-panel partial
-//     first, then the running sum, so no single chain adds more than a
-//     panel's worth of products. The diagonal CTAs (tile_i == tile_j) also
-//     accumulate the tile's rows of C against a 32-row panel of B, so the
-//     RHS rides the same read of D. Each CTA writes its partial tile.
-//   * pass 2: one thread per output element sums the partials over the
-//     splits in a fixed order and writes G[a][b] and, by mirroring the
-//     upper tiles, the lower triangle; C likewise.
-// No atomics: the result is bitwise repeatable for a given (m, n, splits).
+// The TPU ran the m-reduction innermost on one core, keeping each output
+// tile resident. Here m is split across CTAs, and a second kernel sums the
+// splits: CTA (tile, split) owns one 64x64 output tile with tile_i <=
+// tile_j and a contiguous range of rows. No atomics: the result is bitwise
+// repeatable for a given (m, n, splits).
+//
+// K2a, gram_tile_kernel (Gram only, the main path's setup):
+//   * 128 threads per tile, each owning an 8x4 block of G: per staged row
+//     three 16-byte shared loads feed 32 FFMA. Warp w owns the quadrant
+//     (w / 2, w % 2); in a diagonal tile the strictly lower quadrant is the
+//     upper one's mirror, so its warp only copies (a quarter of the FMAs of
+//     the five diagonal tiles at n = 307 go; gram_reduce_kernel mirrors);
+//   * 64-row panels of the tile's two column stripes go through a ring of
+//     two shared-memory stages with one barrier a panel; the copy of panel
+//     k+1 is in flight while panel k's FMAs run. An f32 row of n = 307 is
+//     1,228 bytes, so no stripe of D is a TMA box (strides must be
+//     multiples of 16 bytes) and a 16-byte copy of a stripe is aligned for
+//     one row in four; 4-byte cp.async is aligned for every row and n. Each
+//     thread copies one column of one stripe for 32 rows, one pointer
+//     advanced by n per row; ragged rows and columns are zero-filled by the
+//     copy itself (src-size 0). bf16 stripes are 2-byte aligned, which
+//     cp.async cannot fetch: bf16 D is upcast by plain loads into the next
+//     stage (off the main path, whose Gram is taken on f32 D). A TMA copy
+//     of four-row groups (16n-byte stride) was tried: a box starts only at
+//     a 16-byte boundary, so three row groups in four land shifted, and
+//     the extra shared loads (or a pass that moves the rows) cost more than
+//     the copy instructions they save (PERF.md, section 6);
+//   * a per-panel partial first, then the running sum, so no chain adds
+//     more than 64 products before it joins the total.
+// K2b, gram_rhs_kernel (Gram + right-hand sides): 256 threads per tile, a
+// 4x4 block each, 32-row panels staged synchronously (upcast on the way
+// in); the diagonal CTAs also accumulate the tile's rows of C against a
+// 32-row panel of B, so the RHS rides the same read of D.
+// gram_reduce_kernel: one thread per output element sums the partials over
+// the splits in a fixed order and writes G[a][b] and, by mirroring the
+// upper tiles (and the upper half of diagonal ones), the lower triangle;
+// rhs_reduce_kernel likewise for C.
 // The CTAs of one split are adjacent in launch order, so the stripes of a
 // panel that several tiles read are served from L2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kTile = 64;     // output tile edge
-constexpr int kRows = 32;     // rows per staged panel
-constexpr int kThreads = 256;
+constexpr int kPanel = 64;    // K2a: rows per staged panel
+constexpr int kStages = 2;    // K2a: panels in the shared-memory ring
+constexpr int kTM = 8, kTN = 4;  // K2a: outputs per thread (fixed: the
+                                 // loads and the quadrant map assume it)
+constexpr int kTileThreads = kTile * kTile / (kTM * kTN);
+constexpr int kCopyRows = kPanel * kTile / kTileThreads;  // per thread
+constexpr int kStageFloats = kPanel * 2 * kTile;  // [row][a | b]
+constexpr int kRows = 32;     // K2b: rows per staged panel
+constexpr int kThreads = 256;  // K2b
 constexpr int kRmax = 64;     // RHS columns per launch
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -40,20 +70,151 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Index of upper tile (ti, tj), ti <= tj, in row-major order of the upper
-// triangle of an nt x nt tile grid.
+// Upper tile (ti, tj), ti <= tj, of the tile-th entry in row-major order
+// of the upper triangle of an nt x nt tile grid.
+__device__ __forceinline__ void upper_tile(int tile, int nt, int& ti,
+                                           int& tj) {
+  int rem = tile;
+  ti = 0;
+  while (rem >= nt - ti) {
+    rem -= nt - ti;
+    ++ti;
+  }
+  tj = ti + rem;
+}
+
 __host__ __device__ __forceinline__ int upper_index(int ti, int tj, int nt) {
   return ti * nt - ti * (ti - 1) / 2 + (tj - ti);
 }
 
-// RHS is a compile-time switch, so the Gram-only kernel (K2a) carries
-// none of the right-hand-side code and its registers.
-template <typename T, bool RHS>
+// Rows [r0, r0 + kCopyRows) of one column of one stripe of a panel into
+// shared memory: rows below `rows` from src, src + n, ...; the others, and
+// every row when !col_ok, become 0.
+__device__ __forceinline__ void copy_column(float* dst, const float* src,
+                                            long long n, int r0, int rows,
+                                            bool col_ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+#pragma unroll 8
+  for (int r = r0; r < r0 + kCopyRows; ++r) {
+    const bool ok = col_ok && r < rows;
+    // src-size 0 zero-fills without reading, so a masked source address is
+    // never dereferenced
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     d + 4u * (2 * kTile) * r),
+                 "l"(reinterpret_cast<uint64_t>(src)), "r"(ok ? 4 : 0)
+                 : "memory");
+    src += ok ? n : 0;
+  }
+}
+
+__device__ __forceinline__ void copy_column(float* dst,
+                                            const __nv_bfloat16* src,
+                                            long long n, int r0, int rows,
+                                            bool col_ok) {
+#pragma unroll 8
+  for (int r = r0; r < r0 + kCopyRows; ++r) {
+    const bool ok = col_ok && r < rows;
+    dst[r * (2 * kTile)] = ok ? __bfloat162float(*src) : 0.f;
+    src += ok ? n : 0;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+gram_tile_kernel(const T* __restrict__ D, long long m, int n, int nt,
+                 long long rows_per_split, float* __restrict__ gpart) {
+  extern __shared__ __align__(16) float stage[];  // [kStages][kPanel][2 kTile]
+
+  const int tile = blockIdx.x, split = blockIdx.y;
+  int ti, tj;
+  upper_tile(tile, nt, ti, tj);
+  const bool diag = ti == tj;
+  const long long r_begin = (long long)split * rows_per_split;
+  const long long r_end = min(m, r_begin + rows_per_split);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // warp w owns the 32x32 quadrant (w / 2, w % 2) of the tile, lane l the
+  // 8x4 block at row 8 (l / 8), column 4 (l % 8) of it
+  const int row_g = 32 * (warp / 2) + kTM * (lane / 8);
+  const int col_g = 32 * (warp % 2) + kTN * (lane % 8);
+  const bool skip = diag && warp == 2;
+
+  // the copy: this thread's column of each stripe, rows [r0, r0 +
+  // kCopyRows) of the panel; diagonal tiles stage one stripe
+  const int col = tid % kTile, r0 = tid / kTile * kCopyRows;
+  const int ca = ti * kTile + col, cb = tj * kTile + col;
+  const bool oka = ca < n, okb = !diag && cb < n;
+  const T* pa = D + (long long)r0 * n + (oka ? ca : 0);
+  const T* pb = D + (long long)r0 * n + (okb ? cb : 0);
+  const int npanels = (int)((r_end - r_begin + kPanel - 1) / kPanel);
+
+  auto issue = [&](int k) {
+    if (k < npanels) {
+      float* st = stage + (k % kStages) * kStageFloats + col;
+      const long long row0 = r_begin + (long long)k * kPanel;
+      const int rows = (int)min((long long)kPanel, r_end - row0);
+      copy_column(st, pa + row0 * n, n, r0, rows, oka);
+      if (!diag) copy_column(st + kTile, pb + row0 * n, n, r0, rows, okb);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");  // maybe empty
+  };
+
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+  for (int k = 0; k < npanels; ++k) {
+    // panel k has landed (at most kStages - 2 younger groups pending) and
+    // every thread is done with panel k - 1, whose stage the next issue
+    // refills
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+    __syncthreads();
+    issue(k + kStages - 1);
+    if (skip) continue;
+    const float* st = stage + (k % kStages) * kStageFloats;
+    const float* A = st + row_g;
+    const float* B = st + (diag ? 0 : kTile) + col_g;
+    float part[kTM][kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) part[i][j] = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < kPanel; ++r) {
+      const float4 a0 = *reinterpret_cast<const float4*>(A + r * 2 * kTile);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(A + r * 2 * kTile + 4);
+      const float4 b = *reinterpret_cast<const float4*>(B + r * 2 * kTile);
+      const float av[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[kTN] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) part[i][j] += av[i] * bv[j];
+    }
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] += part[i][j];
+  }
+
+  if (skip) return;
+  float* gp = gpart + ((size_t)split * gridDim.x + tile) * (kTile * kTile) +
+              row_g * kTile + col_g;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+    *reinterpret_cast<float4*>(gp + i * kTile) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gram_partial_kernel(const T* __restrict__ D, const float* __restrict__ B,
-                    long long m, int n, int r, int with_gram, int nt,
-                    long long rows_per_split, float* __restrict__ gpart,
-                    float* __restrict__ cpart) {
+gram_rhs_kernel(const T* __restrict__ D, const float* __restrict__ B,
+                long long m, int n, int r, int with_gram, int nt,
+                long long rows_per_split, float* __restrict__ gpart,
+                float* __restrict__ cpart) {
   __shared__ __align__(16) float As[kRows][kTile];
   __shared__ __align__(16) float Bs[kRows][kTile];
   __shared__ float Rs[kRows][kRmax];
@@ -61,15 +222,10 @@ gram_partial_kernel(const T* __restrict__ D, const float* __restrict__ B,
   const int tile = blockIdx.x;
   const int split = blockIdx.y;
   const int ntiles = gridDim.x;
-  int ti = 0, rem = tile;
-  while (rem >= nt - ti) {
-    rem -= nt - ti;
-    ++ti;
-  }
-  const int tj = ti + rem;
+  int ti, tj;
+  upper_tile(tile, nt, ti, tj);
   const bool diag = ti == tj;
-  const bool do_rhs = RHS && diag;
-  if (!with_gram && !do_rhs) return;
+  if (!with_gram && !diag) return;
 
   const long long r_begin = (long long)split * rows_per_split;
   const long long r_end = min(m, r_begin + rows_per_split);
@@ -96,7 +252,7 @@ gram_partial_kernel(const T* __restrict__ D, const float* __restrict__ B,
         Bs[rr][c] =
             (rok && col_b + c < n) ? to_f32(D[row * n + col_b + c]) : 0.f;
     }
-    if (do_rhs) {
+    if (diag) {
       for (int e = tid; e < kRows * r; e += kThreads) {  // columns q < r
         const int rr = e / r, q = e % r;
         const long long row = row0 + rr;
@@ -127,7 +283,7 @@ gram_partial_kernel(const T* __restrict__ D, const float* __restrict__ B,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
     }
-    if (do_rhs) {
+    if (diag) {
       // the tile's 64 x r entries of C go round the 256 threads: entry
       // p = tid + 256 k is column p % 64, RHS p / 64; a warp whose entries
       // are all past 64 r skips the block (r = 1 keeps two warps busy)
@@ -153,7 +309,7 @@ gram_partial_kernel(const T* __restrict__ D, const float* __restrict__ B,
       for (int j = 0; j < 4; ++j)
         gp[(ty * 4 + i) * kTile + tx * 4 + j] = acc[i][j];
   }
-  if (do_rhs) {
+  if (diag) {
     float* cp = cpart + ((size_t)split * nt + ti) * (kTile * kRmax);
 #pragma unroll
     for (int k = 0; k < kRmax / 4; ++k) {
@@ -170,7 +326,9 @@ __global__ void gram_reduce_kernel(const float* __restrict__ gpart, int n,
   if (e >= (long long)n * n) return;
   const int a = (int)(e / n), b = (int)(e % n);
   int ti = a / kTile, tj = b / kTile, ia = a % kTile, ib = b % kTile;
-  if (ti > tj) {  // lower tile: read the mirrored upper element
+  // a lower tile, or the lower half of a diagonal one: read the mirrored
+  // upper element (K2a leaves the diagonal tiles' lower quadrant unset)
+  if (ti > tj || (ti == tj && ia > ib)) {
     int t = ti; ti = tj; tj = t;
     t = ia; ia = ib; ib = t;
   }
@@ -198,6 +356,19 @@ __global__ void rhs_reduce_kernel(const float* __restrict__ cpart, int n,
 }
 
 template <typename T>
+cudaError_t launch_tile(const T* D, long long m, int n, int nt,
+                        long long rows_per_split, dim3 grid, float* gpart,
+                        cudaStream_t s) {
+  const int smem = kStages * kStageFloats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gram_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  gram_tile_kernel<T><<<grid, kTileThreads, smem, s>>>(D, m, n, nt,
+                                                       rows_per_split, gpart);
+  return cudaGetLastError();
+}
+
+template <typename T>
 int launch_gram(const void* D, const void* B, long long m, int n, int r,
                 int with_gram, long long rows_per_split, int splits,
                 void* gpart, void* cpart, void* G, void* C, int c_ld,
@@ -205,16 +376,19 @@ int launch_gram(const void* D, const void* B, long long m, int n, int r,
   const int nt = (n + kTile - 1) / kTile;
   const int ntiles = nt * (nt + 1) / 2;
   dim3 grid(ntiles, splits);
-  if (r > 0)
-    gram_partial_kernel<T, true><<<grid, kThreads, 0, s>>>(
+  cudaError_t err;
+  if (r > 0) {
+    gram_rhs_kernel<T><<<grid, kThreads, 0, s>>>(
         static_cast<const T*>(D), static_cast<const float*>(B), m, n, r,
         with_gram, nt, rows_per_split, static_cast<float*>(gpart),
         static_cast<float*>(cpart));
-  else
-    gram_partial_kernel<T, false><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(D), nullptr, m, n, 0, 1, nt, rows_per_split,
-        static_cast<float*>(gpart), nullptr);
-  cudaError_t err = cudaGetLastError();
+  } else {
+    if (rows_per_split % kPanel != 0) return cudaErrorInvalidValue;
+    err = launch_tile<T>(static_cast<const T*>(D), m, n, nt, rows_per_split,
+                         grid, static_cast<float*>(gpart), s);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int threads = 256;
   if (with_gram) {
@@ -237,16 +411,18 @@ int launch_gram(const void* D, const void* B, long long m, int n, int r,
 }  // namespace
 
 // dtype: 0 = float32 D, 1 = bfloat16 D. B is float32 (m, r) row-major with
-// r <= 64 (r = 0: Gram only). with_gram = 0 computes only C (the later
-// column groups of a wide RHS). gpart holds splits * nt(nt+1)/2 * 64 * 64
-// floats, cpart splits * nt * 64 * 64 floats. C is written at columns
-// [c_off, c_off + r) of a row-major (n, c_ld) matrix.
+// r <= 64; r = 0 computes the Gram alone (K2a, gram_tile_kernel; then
+// rows_per_split must be a multiple of 64). with_gram = 0 computes only C
+// (the later column groups of a wide RHS). gpart holds
+// splits * nt(nt+1)/2 * 64 * 64 floats, cpart splits * nt * 64 * 64
+// floats. C is written at columns [c_off, c_off + r) of a row-major
+// (n, c_ld) matrix.
 extern "C" int repro_gram(const void* D, int dtype, const void* B,
                           long long m, int n, int r, int with_gram,
                           long long rows_per_split, int splits, void* gpart,
                           void* cpart, void* G, void* C, int c_ld, int c_off,
                           void* stream) {
-  if (r < 0 || r > kRmax || n <= 0 || splits <= 0)
+  if (r < 0 || r > kRmax || n <= 0 || splits <= 0 || (r == 0 && !with_gram))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

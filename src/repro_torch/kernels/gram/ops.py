@@ -1,7 +1,9 @@
 """K2 wrappers: G = D^T D (``gram``, K2a) and (D^T D, D^T B) in one read
 of D (``gram_and_rhs``, K2b); port of ``repro/kernels/gram/ops.py``.
 
-CUDA tensors go to ``csrc/gram.cu``; CPU tensors run the plain versions
+CUDA tensors go to ``csrc/gram.cu`` (``gram``: the 8x8-per-thread tile
+kernel with a cp.async ring; ``gram_and_rhs``: the RHS kernel); CPU
+tensors run the plain versions
 (:func:`gram_plain`, :func:`gram_and_rhs_plain`), which upcast one row
 block at a time; any other device raises. The TPU wrapper padded D to
 block multiples and mirrored the skipped lower blocks afterwards; the CUDA
@@ -102,7 +104,8 @@ def _launch(D, b):
     from repro_torch.engine import autotune
     splits = autotune.gram_splits(m, n, D.dtype)
     rows_per_split = max(1, -(-m // splits))
-    rows_per_split = -(-rows_per_split // 32) * 32
+    rows_per_split = -(-rows_per_split // autotune.GRAM_PANEL) \
+        * autotune.GRAM_PANEL
     splits = max(1, -(-m // rows_per_split))
     dev = D.device
     G = torch.empty((n, n), dtype=torch.float32, device=dev)

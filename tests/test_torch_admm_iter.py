@@ -3,19 +3,31 @@ y', lam', d, w, v) against the JAX package's ``admm_iter_full`` in
 interpret mode, on a subset of ``tests/test_kernels_admm_iter.py`` CASES
 (y/lam atol 2e-5) plus the kinds that file leaves out.
 """
-import jax
-import jax.numpy as jnp
+import functools
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.admm_iter import ops as jops
-from repro.kernels.admm_iter.ref import admm_iter_ref as j_admm_iter_ref
+from repro_torch.engine import autotune
 from repro_torch.kernels.admm_iter import ops as tops
 from repro_torch.kernels.admm_iter.ref import admm_iter_ref
 
-jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax():
+    """The JAX side, imported by the parity tests only: the card's machine,
+    which runs the ``cuda``-marked test, has no JAX."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.admm_iter import ops
+    from repro.kernels.admm_iter.ref import admm_iter_ref as j_ref
+    jax.config.update("jax_platform_name", "cpu")
+    return SimpleNamespace(jnp=jnp, ops=ops, ref=j_ref)
+
 
 CASES = [
     (2048, 128, "float32", "logistic", 0.0),
@@ -28,26 +40,29 @@ CASES = [
 ]
 
 
-def _state(m, n, dtype, seed=0):
+def _state(m, n, dtype, seed=0, jax_side=True):
     rng = np.random.default_rng(seed)
     D = rng.standard_normal((m, n)).astype(np.float32)
     aux = np.sign(rng.standard_normal(m)).astype(np.float32)
     y = rng.standard_normal(m).astype(np.float32)
     lam = rng.standard_normal(m).astype(np.float32)
     x = (0.1 * rng.standard_normal(n)).astype(np.float32)
-    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    j = (jnp.asarray(D, jd), jnp.asarray(aux), jnp.asarray(y),
-         jnp.asarray(lam), jnp.asarray(x))
     t = (torch.from_numpy(D).to(td), torch.from_numpy(aux),
          torch.from_numpy(y), torch.from_numpy(lam), torch.from_numpy(x))
+    if not jax_side:
+        return None, t
+    jnp = _jax().jnp
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    j = (jnp.asarray(D, jd), jnp.asarray(aux), jnp.asarray(y),
+         jnp.asarray(lam), jnp.asarray(x))
     return j, t
 
 
 @pytest.mark.parametrize("m,n,dtype,kind,param", CASES)
 def test_admm_iter_full_matches_jax(m, n, dtype, kind, param):
     j, t = _state(m, n, dtype)
-    out_j = jops.admm_iter_full(*j, kind=kind, delta=2.0, block_m=512,
+    out_j = _jax().ops.admm_iter_full(*j, kind=kind, delta=2.0, block_m=512,
                                 interpret=True, param=param)
     out_t = tops.admm_iter_full(*t, kind=kind, delta=2.0, param=param)
     np.testing.assert_allclose(out_t[0].numpy(), np.asarray(out_j[0]),
@@ -63,7 +78,7 @@ def test_admm_iter_full_matches_jax(m, n, dtype, kind, param):
 @pytest.mark.parametrize("kind", ["logistic", "hinge"])
 def test_admm_iter_three_tuple_and_ref_match_jax_ref(kind):
     j, t = _state(1500, 64, "float32", seed=1)
-    yj, lj, dj = j_admm_iter_ref(*j, kind=kind, delta=2.0)
+    yj, lj, dj = _jax().ref(*j, kind=kind, delta=2.0)
     y3, l3, d3 = tops.admm_iter(*t, kind=kind, delta=2.0)
     yr, lr, dr = admm_iter_ref(*t, kind=kind, delta=2.0)
     for got in ((y3, l3, d3), (yr, lr, dr)):
@@ -79,7 +94,7 @@ def test_plain_row_blocks_change_nothing(block_rows):
     """The plain version's row blocks are ragged views: any block height
     gives the same result to rounding (the matvec of a block may sum in
     another order)."""
-    _, t = _state(777, 33, "float32", seed=2)
+    _, t = _state(777, 33, "float32", seed=2, jax_side=False)
     ref = tops.admm_iter_plain(*t, kind="logistic", delta=2.0,
                                block_rows=777)
     got = tops.admm_iter_plain(*t, kind="logistic", delta=2.0,
@@ -92,6 +107,65 @@ def test_plain_row_blocks_change_nothing(block_rows):
 
 
 def test_admm_iter_rejects_unknown_kind():
-    _, t = _state(100, 8, "float32")
+    _, t = _state(100, 8, "float32", jax_side=False)
     with pytest.raises(ValueError, match="huber"):
         tops.admm_iter_full(*t, kind="huber", delta=1.0)
+
+
+KINDS = ("logistic", "hinge", "l1", "least_squares", "quantile")
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    """K3 against its plain version on the card, on both routes (each
+    call's route read from the counters): all five kinds at n = 307, odd
+    and even n, a ragged m, D aligned and as a row-offset view (a base off
+    16-byte alignment: the ring copies the ragged bytes by hand), f32 and
+    bf16, and n = 307 pinned to the wide route; two identical calls
+    bitwise equal. Bounds: chip_smoke.py's small-shape 2e-5, relative to
+    max(1, max |plain|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    fn = tops.admm_iter_full
+    cases = [(1000, 307, torch.float32, k, None) for k in KINDS] + [
+        (4099, 307, torch.bfloat16, "logistic", None),
+        (70001, 307, torch.float32, "hinge", None),
+        (1000, 33, torch.float32, "logistic", None),
+        (999, 128, torch.float32, "logistic", None),
+        (3001, 512, torch.bfloat16, "quantile", None),
+        (3000, 2050, torch.float32, "logistic", None),
+        (4099, 307, torch.float32, "logistic", "wide"),
+        (4099, 307, torch.bfloat16, "l1", "wide")]
+    for m, n, dt, kind, pin in cases:
+        base = torch.randn((m + 1, n), generator=g, device=dev).to(dt)
+        aux = torch.sign(torch.randn(m, generator=g, device=dev))
+        y, lam = (torch.randn(m, generator=g, device=dev) for _ in range(2))
+        x = 0.1 * torch.randn(n, generator=g, device=dev)
+        a = None if kind == "l1" else aux
+        p = 0.3 if kind == "quantile" else 0.0
+        key = ("iter", m, n, str(dt).replace("torch.", ""))
+        if pin:
+            autotune.CACHE[key] = autotune._wide_grid(m, n)
+        try:
+            want = "wide" if pin else ("ring" if n <= 512 else "wide")
+            assert tops.route(m, n, dt) == want
+            for D in (base[:m], base[1:]):
+                before = (fn.launches_ring, fn.launches_wide)
+                o1 = fn(D, a, y, lam, x, kind=kind, delta=2.0, param=p)
+                o2 = fn(D, a, y, lam, x, kind=kind, delta=2.0, param=p)
+                op = tops.admm_iter_plain(D, a, y, lam, x, kind=kind,
+                                          delta=2.0, param=p)
+                torch.cuda.synchronize()
+                moved = (fn.launches_ring - before[0],
+                         fn.launches_wide - before[1])
+                assert moved == ((2, 0) if want == "ring" else (0, 2))
+                assert all(torch.equal(u, v) for u, v in zip(o1, o2))
+                for u, v in zip(o1, op):
+                    scale = max(1.0, float(v.abs().max()))
+                    assert float((u - v).abs().max()) <= 2e-5 * scale, \
+                        (m, n, dt, kind, pin)
+        finally:
+            if pin:
+                del autotune.CACHE[key]

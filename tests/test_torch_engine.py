@@ -195,25 +195,49 @@ def test_make_step_matches_iterate():
 
 
 def test_autotune_blocks_are_sane():
-    R, ctas = autotune.iter_grid(1 << 24, 307, torch.float32)
-    assert R == 32 and ctas == 4 * autotune.SM_COUNT
-    smem = (R * 307 + 4 * 307 + 128) * 4
-    assert smem <= autotune.SMEM_TARGET <= autotune.SMEM_PER_BLOCK
-    R2, _ = autotune.iter_grid(4096, 5000, torch.float32)
-    assert 1 <= R2 < 32 and (R2 * 5000 + 4 * 5000 + 128) * 4 \
-        <= autotune.SMEM_PER_BLOCK
+    # K3, ring route at the main path's shape: one CTA per SM; W warps x R
+    # rows held at once, as many as fit a block with S = W + 1 stages, then
+    # as many stages as fit
+    f32 = autotune.iter_grid(1 << 24, 307, torch.float32)
+    assert f32 == ("ring", 20, autotune.SM_COUNT, 9, 8)
+    bf16 = autotune.iter_grid(1 << 24, 307, torch.bfloat16)
+    assert bf16 == ("ring", 32, autotune.SM_COUNT, 11, 8)
+    for grid, dsize in ((f32, 4), (bf16, 2)):
+        assert 1 <= grid.warps <= 8 and grid.warps < grid.stages <= 16
+        assert grid.rows <= 32 and (grid.rows * 307 * dsize) % 16 == 0
+        smem = autotune.ring_smem(307, dsize, grid.stages, grid.warps,
+                                  grid.rows)
+        assert smem <= autotune.SMEM_PER_BLOCK
+        # one stage more would not fit (or the ring is at its 16 stages)
+        assert grid.stages == 16 or autotune.ring_smem(
+            307, dsize, grid.stages + 1, grid.warps, grid.rows) \
+            > autotune.SMEM_PER_BLOCK
+        # the warps' accumulators fit the ring at the end of the kernel
+        assert smem - autotune.ring_smem(307, dsize, 0, grid.warps) \
+            >= grid.warps * 3 * 307 * 4
+    # stage = R rows + 16 bytes of slack, rounded to 16 bytes
+    assert autotune.ring_smem(307, 4, 1, 0, 20) - autotune.ring_smem(
+        307, 4, 0, 0, 20) == -(-(20 * 307 * 4 + 16) // 16) * 16
+    assert autotune.iter_grid(100, 307, torch.float32).ctas == 5
+    # widths past the ring take the wide route, which still fits
+    assert autotune.iter_grid(4096, 512, torch.float32).route == "ring"
+    R2 = autotune.iter_grid(4096, 5000, torch.float32)
+    assert R2.route == "wide" and 1 <= R2.rows < 32 \
+        and (R2.rows * 5000 + 4 * 5000 + 128) * 4 <= autotune.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="shared memory"):
         autotune.iter_grid(4096, 100_000, torch.float32)
-    assert autotune.iter_grid(100, 307, torch.float32) == (32, 4)
+    # K2a: splits fill at most GRAM_CTAS CTAs, in 64-row panels
     s = autotune.gram_splits(1 << 24, 307, torch.float32)
-    assert s * 15 >= autotune.GRAM_CTAS and autotune.gram_splits(
-        40, 307, torch.float32) == 2
+    assert s * 15 <= autotune.GRAM_CTAS < (s + 1) * 15
+    assert autotune.gram_splits(40, 307, torch.float32) == 1
+    assert autotune.gram_splits(1000, 307, torch.float32) == 16
     assert autotune.chunked_block_rows(1 << 20, 512, torch.float32) % 8 == 0
     assert autotune.chunked_block_rows(300, 64, torch.float32) <= 304
     # memoized, and a pinned entry overrides
     assert ("iter", 1 << 24, 307, "float32") in autotune.CACHE
-    autotune.CACHE[("iter", 777, 33, "float32")] = (5, 3)
+    autotune.CACHE[("iter", 777, 33, "float32")] = ("wide", 5, 3, 1, 8)
     try:
-        assert autotune.iter_grid(777, 33, torch.float32) == (5, 3)
+        assert autotune.iter_grid(777, 33, torch.float32) == (
+            "wide", 5, 3, 1, 8)
     finally:
         del autotune.CACHE[("iter", 777, 33, "float32")]

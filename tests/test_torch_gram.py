@@ -5,30 +5,42 @@ The JAX side runs the Pallas Gram kernels in interpret mode; tolerances
 are ``tests/test_kernels.py:24`` (gram), ``:50`` (gram + rhs) and
 ``tests/test_engine.py:167`` (multi-RHS).
 """
-import jax
-import jax.numpy as jnp
+import functools
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
-from repro.core import gram as jgram
-from repro.engine import gram_stats as j_gram_stats
-from repro.kernels.gram import ops as jops
 from repro_torch.core import gram as tgram
 from repro_torch.engine import gram_stats as t_gram_stats
 from repro_torch.kernels.gram import ops as tops
 
-jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
 
-DTYPES = {"float32": (jnp.float32, torch.float32),
-          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TDTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax():
+    """The JAX side, imported by the parity tests only: the card's machine,
+    which runs the ``cuda``-marked test, has no JAX."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import gram as jgram
+    from repro.engine import gram_stats
+    from repro.kernels.gram import ops
+    jax.config.update("jax_platform_name", "cpu")
+    return SimpleNamespace(jnp=jnp, jgram=jgram, gram_stats=gram_stats,
+                           ops=ops, dtypes={"float32": jnp.float32,
+                                            "bfloat16": jnp.bfloat16})
 
 
 def _pair(a, dtype="float32"):
     """The same values in both packages (bf16 rounds identically)."""
-    jd, td = DTYPES[dtype]
-    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+    jx = _jax()
+    return jx.jnp.asarray(a, jx.dtypes[dtype]), \
+        torch.from_numpy(a).to(TDTYPES[dtype])
 
 
 def _randn(shape, seed):
@@ -40,7 +52,7 @@ def _randn(shape, seed):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gram_matches_jax_kernel(m, n, dtype):
     Dj, Dt = _pair(_randn((m, n), 0), dtype)
-    Gj = np.asarray(jops.gram(Dj, block_m=256, block_n=128, interpret=True))
+    Gj = np.asarray(_jax().ops.gram(Dj, block_m=256, block_n=128, interpret=True))
     Gt = tops.gram(Dt).numpy()
     tol = 5e-6 * m if dtype == "bfloat16" else 2e-6 * m
     np.testing.assert_allclose(Gt, Gj, atol=tol * np.abs(Gj).max() / m,
@@ -55,7 +67,8 @@ def test_gram_matches_jax_kernel(m, n, dtype):
 def test_gram_and_rhs_matches_jax_kernel(m, n, r, dtype):
     Dj, Dt = _pair(_randn((m, n), 2), dtype)
     b = _randn((m, r) if r else (m,), 3)
-    Gj, cj = jops.gram_and_rhs(Dj, jnp.asarray(b), interpret=True)
+    Gj, cj = _jax().ops.gram_and_rhs(Dj, _jax().jnp.asarray(b),
+                                     interpret=True)
     Gt, ct = tops.gram_and_rhs(Dt, torch.from_numpy(b))
     tol = dict(rtol=2e-2, atol=1e-2) if dtype == "bfloat16" else dict(
         rtol=3e-5, atol=1e-3)
@@ -73,7 +86,8 @@ def test_gram_stats_multi_rhs_matches_jax(m, n, r, dtype):
     wrapper runs the plain version) against the JAX interpret kernel."""
     Dj, Dt = _pair(_randn((m, n), 4), dtype)
     b = _randn((m, r) if r else (m,), 5)
-    Gj, cj = j_gram_stats(Dj, jnp.asarray(b), backend="pallas_interpret")
+    Gj, cj = _jax().gram_stats(Dj, _jax().jnp.asarray(b),
+                               backend="pallas_interpret")
     for backend in ("cuda", "chunked", "reference"):
         Gt, ct = t_gram_stats(Dt, torch.from_numpy(b), backend=backend)
         tol = dict(rtol=2e-2, atol=1e-2) if dtype == "bfloat16" else dict(
@@ -89,6 +103,7 @@ def test_core_chunked_grams_match_jax(block_rows):
     m, n = 1000, 40
     D = _randn((m, n), 6)
     b = _randn((m, 3), 7)
+    jnp, jgram = _jax().jnp, _jax().jgram
     Dj, Dt = jnp.asarray(D), torch.from_numpy(D)
     bj, bt = jnp.asarray(b), torch.from_numpy(b)
     kw = dict(rtol=1e-5, atol=1e-3)
@@ -116,6 +131,7 @@ def test_gram_factor_and_solve_match_jax(ridge, rhs_cols):
     rhs = _randn((n, rhs_cols) if rhs_cols else (n,), 9)
     G = D.T.astype(np.float64) @ D
     G = G.astype(np.float32)
+    jnp, jgram = _jax().jnp, _jax().jgram
     Lj = jgram.gram_factor(jnp.asarray(G), ridge=ridge)
     Lt = tgram.gram_factor(torch.from_numpy(G), ridge=ridge)
     np.testing.assert_allclose(Lt.numpy(), np.asarray(Lj), rtol=1e-5,
@@ -138,3 +154,49 @@ def test_gram_factor_raises_on_singular():
     G[4, 4] -= 1e-3                                # push it indefinite
     with pytest.raises(torch.linalg.LinAlgError):
         tgram.gram_factor(G)
+
+
+def _gram_err(got, want):
+    """max |dG_ab| / sqrt(G_aa G_bb): Cauchy-Schwarz scale, as
+    chip_smoke.py holds K2 (a column of large entries cannot hide the error
+    of a small one)."""
+    got, want = got.double(), want.double()
+    dg = torch.sqrt(torch.clamp(torch.diagonal(want), min=1e-30))
+    return float(((got - want).abs() / (dg[:, None] * dg[None, :])).max())
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card():
+    """K2a (the tile kernel) and K2b (the RHS kernel) against their plain
+    versions on the card: ragged n, m not a multiple of the 64-row panel,
+    D aligned and as a row-offset view (its base off 16-byte alignment),
+    f32 and bf16; two identical calls bitwise equal, G exactly symmetric.
+    Bound: chip_smoke.py's 1e-5 on the Cauchy-Schwarz scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for m, n in ((1000, 33), (4099, 307), (777, 130), (70001, 307)):
+        for dt in (torch.float32, torch.bfloat16):
+            base = torch.randn((m + 3, n), generator=g, device=dev).to(dt)
+            b = torch.randn((m, 5), generator=g, device=dev)
+            for D in (base[:m], base[3:]):
+                assert D.is_contiguous()
+                launched = (tops.gram.launches, tops.gram_and_rhs.launches)
+                G1, G2, Gp = tops.gram(D), tops.gram(D), tops.gram_plain(D)
+                (H1, C1), (H2, C2) = tops.gram_and_rhs(D, b), \
+                    tops.gram_and_rhs(D, b)
+                Hp, Cp = tops.gram_and_rhs_plain(D, b)
+                torch.cuda.synchronize()
+                assert (tops.gram.launches, tops.gram_and_rhs.launches) \
+                    == (launched[0] + 2, launched[1] + 2)
+                assert torch.equal(G1, G2) and torch.equal(G1, G1.T)
+                assert torch.equal(H1, H2) and torch.equal(C1, C2)
+                assert _gram_err(G1, Gp) <= 1e-5
+                assert _gram_err(H1, Hp) <= 1e-5
+                assert float((C1 - Cp).abs().max()) \
+                    <= 1e-5 * max(1.0, float(Cp.abs().max()))
+            # the bits depend on the values and shapes, not on where D
+            # starts
+            assert torch.equal(tops.gram(base[3:]),
+                               tops.gram(base[3:].clone()))

@@ -192,3 +192,40 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
     wkv_ops.wkv(r, r, r, -torch.ones_like(r), r[0, :, 0], chunk=16)
     torch.cuda.synchronize()
     assert wkv_ops.wkv.launches == launched + 1
+
+
+@pytest.mark.parametrize("fail_on", [None, "gram.cu", "-shared"])
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch,
+                                               fail_on):
+    """``build.build`` runs one ``nvcc -c`` per source and one link, and
+    raises on any compiler error, leaving no library behind (a stand-in
+    nvcc that records its arguments takes the real one's place)."""
+    from repro_torch.kernels import build
+    log = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$*\" >> {log}\n"
+        + (f"case \"$*\" in *{fail_on}*) echo broken >&2; exit 2;; esac\n"
+           if fail_on else "")
+        + "out=\"\"; prev=\"\"\n"
+        "for a in \"$@\"; do [ \"$prev\" = -o ] && out=\"$a\"; prev=\"$a\";"
+        " done\n"
+        "echo built > \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc", lambda: str(nvcc))
+    out_dir = tmp_path / "out"
+    if fail_on:
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            build.build(out_dir)
+        assert list(out_dir.iterdir()) == []
+        return
+    lib = build.build(out_dir)
+    assert lib.name == f"librepro_torch_{build.source_hash()}.so"
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in f" {c} "]
+    assert len(compiles) == len(build.SOURCES) and len(calls) == \
+        len(build.SOURCES) + 1 and "-shared" in calls[-1]
+    assert list(out_dir.iterdir()) == [lib]
+    assert build.build(out_dir) == lib and len(
+        log.read_text().splitlines()) == len(calls)   # cached: no compiler
