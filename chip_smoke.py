@@ -32,7 +32,9 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
 5. timing   — each kernel at the main path's shapes against its plain
               version: median of CUDA-event times, its bound on this card,
               and the library yardstick where one PyTorch call computes the
-              same function (K2a must beat ``D.T @ D``); K3 on both routes
+              same function (K2a must beat ``D.T @ D``, K2b
+              ``D.T @ [D | a]``; both are held to a float64 Gram); K3 on
+              both routes
               at the f32 shape and on the bf16 copy (the ring must beat the
               wide kernel in f32).
    The ADMM tensors are then freed, and the LM slices run, qwen3-8b then
@@ -55,7 +57,8 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               ``scaled_dot_product_attention``, and the FMA route on f32
               copies of the same inputs (printed); K5 at the rwkv lm shape
               (B 8, H 32, T 4096, hd 64, chunk 16, bf16 r/k/v) against its
-              plain version and the model's torch chunked form.
+              plain version and the model's torch chunked form (K5 must
+              beat it).
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. The script imports no JAX and nothing of
@@ -235,7 +238,8 @@ def phase_kernels(torch, rt):
             check(e <= 4e-6 and torch.equal(y1, y1b) and torch.equal(l1, l1b),
                   f"K1 prox {kind:13s} m={m}: rel err {e:.2e} <= 4e-6, "
                   "bitwise repeat")
-    # K2a / K2b: ragged n, f32 and bf16, RHS widths 1, 5 and 70; K2a also
+    # K2a / K2b: ragged n, f32 and bf16, RHS widths 1, 5, 16 (riding the
+    # diagonal tiles) and 70 (RHS tiles of their own, two groups); K2a also
     # on a row-offset view (its base off 16-byte alignment), which must give
     # the bits of an aligned copy
     for (m, n) in ((1000, 33), (1000, 307), (4099, 130)):
@@ -255,7 +259,7 @@ def phase_kernels(torch, rt):
             check(e <= 1e-5 and torch.equal(Gv, Gc),
                   f"K2a gram m={m} n={n} {str(dt)[6:]} row-offset view: err "
                   f"{e:.2e} <= 1e-5, bitwise equal to an aligned copy")
-            for r in (0, 5, 70):
+            for r in (0, 5, 16, 70):
                 b = randn(m, r) if r else randn(m)
                 G1, C1 = gram_ops.gram_and_rhs(D, b)
                 _, C1b = gram_ops.gram_and_rhs(D, b)
@@ -513,20 +517,34 @@ def phase_timing(torch, rt, reps: int):
                                       errs.items()), flush=True)
     check(errs["K2a"] <= 1e-5, f"K2a vs f64 Gram: err {errs['K2a']:.2e} "
           "<= 1e-5")
-    del G1, G2, G64
+    del G1, G2
 
-    # K2b at the main path's D with the labels as the RHS
+    # K2b at the main path's D with the labels as the RHS; the library
+    # yardstick is one product D^T [D | a], which holds [G | c]
     (G1, C1), (G2, C2) = gram_ops.gram_and_rhs(D, a), \
         gram_ops.gram_and_rhs_plain(D, a)
     e = max(gram_err(torch, G1, G2), rel_err(torch, C1, C2))
-    check(e <= 1e-4, f"K2b at {m}x{n}: err {e:.2e} <= 1e-4")
-    record(rt, "K2b_gram_and_rhs",
-           max(float((G1 - G2).abs().max()), float((C1 - C2).abs().max())),
-           timer(lambda: gram_ops.gram_and_rhs(D, a)),
+    G1b, C1b = gram_ops.gram_and_rhs(D, a)
+    check(e <= 1e-4 and torch.equal(G1, G1b) and torch.equal(C1, C1b),
+          f"K2b at {m}x{n}: err {e:.2e} <= 1e-4, bitwise repeat")
+    e64 = gram_err(torch, G1, G64)
+    check(e64 <= 1e-5, f"K2b vs f64 Gram: err {e64:.2e} <= 1e-5")
+    err = max(float((G1 - G2).abs().max()), float((C1 - C2).abs().max()))
+    del G1, G2, G1b, C1b, G64
+    k2b_ms = timer(lambda: gram_ops.gram_and_rhs(D, a))
+    DB = torch.cat([D, a[:, None]], 1)   # 20.6 GB, freed after the timer
+    lib_ms = timer(lambda: D.T @ DB)
+    del DB
+    free_device_memory(torch)
+    record(rt, "K2b_gram_and_rhs", err, k2b_ms,
            timer(lambda: gram_ops.gram_and_rhs_plain(D, a)),
            bound(rt, m * n * 4 + m * 4 + n * n * 4 + n * 4,
-                 m * n * n + 2 * m * n), None)
-    del G1, G2
+                 m * n * n + 2 * m * n), lib_ms)
+    print(f"K2b: {k2b_ms:.3f} ms against K2a's {k2a_ms:.3f} ms "
+          f"({k2b_ms / k2a_ms:.3f}x); D.T @ [D | a] {lib_ms:.3f} ms",
+          flush=True)
+    check(k2b_ms < lib_ms,
+          f"K2b {k2b_ms:.3f} ms < D.T @ [D | a] {lib_ms:.3f} ms")
 
     # K3 at the main path's D, f32, from the solution's iterates: the ring
     # route (the main path's) in the record, the wide route pinned to the
@@ -681,10 +699,11 @@ def phase_attn_kernels(torch):
 
 def phase_wkv_kernels(torch):
     """K5 against its plain version at small shapes: head dims 16, 32 and
-    64, chunks 4, 8, 16 and 17, f32 and bf16 r/k/v, (B, H, T, hd)
-    tensors and the model's (B, T, H, hd) layout viewed as (B, H, T, hd),
-    the final state of every case, the hard-decay case (w_log = -50,
-    clamped to -5) and a long sweep; every call twice, bit for bit."""
+    64, chunks 1, 4, 8, 16 and 17 (T of one chunk among them), f32 and
+    bf16 r/k/v, (B, H, T, hd) tensors, the model's (B, T, H, hd) layout
+    viewed as (B, H, T, hd) and views off 16-byte alignment, the final
+    state of every case, the hard-decay case (w_log = -50, clamped to -5)
+    and a long sweep; every call twice, bit for bit."""
     from repro_torch.kernels.wkv import ops as wkv_ops
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -694,19 +713,30 @@ def phase_wkv_kernels(torch):
     cases = [(2, 3, 96, hd, L, dt, bthd, "data")
              for hd in (16, 32, 64) for L in (4, 8, 16) for dt in (f32, bf16)
              for bthd in (False, True)]
+    # "offset": views one element into a (B, T, H, hd + 1) tensor, off
+    # 16-byte alignment, which the kernel stages by plain loads
+    cases += [(2, 3, 96, 64, 16, dt, "offset", "data") for dt in (f32, bf16)]
     cases += [(1, 2, 64, 64, 16, f32, False, "hard"),
               (1, 2, 64, 16, 8, bf16, True, "hard"),
               (2, 4, 1024, 64, 16, bf16, True, "data"),
-              (1, 2, 136, 32, 17, f32, True, "hard")]
+              (1, 2, 136, 32, 17, f32, True, "hard"),
+              # chunk 1, and T of one chunk
+              (2, 3, 24, 64, 1, bf16, True, "data"),
+              (1, 2, 40, 32, 1, f32, False, "hard"),
+              (2, 3, 16, 64, 16, bf16, True, "data"),
+              (1, 2, 17, 64, 17, f32, False, "hard")]
     for B, H, T, hd, L, dt, bthd, decay in cases:
-        def make(scale):
+        def make(scale, dtype=f32):
+            if bthd == "offset":
+                t = torch.randn((B, T, H, hd + 1), generator=g, device=dev)
+                return (scale * t).to(dtype)[..., 1:].transpose(1, 2)
             if bthd:
                 t = torch.randn((B, T, H, hd), generator=g,
                                 device=dev).transpose(1, 2)
             else:
                 t = torch.randn((B, H, T, hd), generator=g, device=dev)
-            return scale * t
-        r, k, v = (make(0.5).to(dt) for _ in range(3))
+            return (scale * t).to(dtype)
+        r, k, v = (make(0.5, dt) for _ in range(3))
         w_log = -torch.exp(make(1.0) - 2.0) if decay == "data" \
             else make(0.0) - 50.0
         u = 0.3 * torch.randn((H, hd), generator=g, device=dev)
@@ -717,10 +747,11 @@ def phase_wkv_kernels(torch):
         err = max(rel_err(torch, y1, yp), rel_err(torch, S1, Sp))
         check(err <= 2e-5 and torch.equal(y1, y2) and torch.equal(S1, S2)
               and y1.dtype == f32 and y1.shape == r.shape
-              and y1.stride() == r.stride()
+              and y1.stride() == torch.empty_like(r, dtype=f32).stride()
               and bool(torch.isfinite(y1).all()),
               f"K5 wkv B={B} H={H} T={T} hd={hd} chunk={L} {str(dt)[6:]}"
-              f"{' bthd' if bthd else ''} {decay} decay: y and S rel err "
+              f"{'' if not bthd else ' bthd' if bthd is True else ' offset'} "
+              f"{decay} decay: y and S rel err "
               f"{err:.2e} <= 2e-5, bitwise repeat, finite, y in r's layout")
 
 
@@ -1089,6 +1120,8 @@ def phase_wkv_timing(torch, rt, reps: int, sh, smoke: bool):
           f"{nflops / k_ms / 1e9:.2f} TFLOP/s achieved; torch "
           f"_wkv_chunked_matmul (the model's wkv_impl='xla' path) "
           f"{f_ms:.3f} ms", flush=True)
+    check(k_ms < f_ms, f"K5 {k_ms:.3f} ms < _wkv_chunked_matmul "
+          f"{f_ms:.3f} ms")
 
 
 # arch -> its kernel, timing phase, whether its bf16 agreement is held to

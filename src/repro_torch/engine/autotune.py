@@ -26,12 +26,13 @@ Budgets:
     The grid depends on the shapes only (``SM_COUNT`` is a constant, not
     the card's), so the order of the reductions, and hence the bits, do
     not depend on the card.
-  * CUDA Gram (K2a, ``csrc/gram.cu``): 64x64 output tiles of 64 threads,
-    8x8 per thread (64 accumulators + 64 partials), and a ring of two
-    64-row panels of two 64-column stripes, 64 KB: three CTAs per SM.
+  * CUDA Gram (K2a and K2b, ``csrc/gram.cu``): 64x64 output tiles of 128
+    threads, 8x4 per thread (32 accumulators + 32 partials), and a ring of
+    two 64-row panels of two 64-column stripes, 64 KB: three CTAs per SM.
     m is split in multiples of ``GRAM_PANEL`` rows so that tiles x splits
     is at most ``GRAM_CTAS``, four full waves of three CTAs per SM. K2b
-    (Gram + RHS) takes the same splits.
+    (Gram + RHS) takes the same splits; past 16 RHS columns its grid adds
+    one RHS tile per column stripe and split.
   * chunked backend (a Python loop of torch ops over row blocks): on the
     CPU, ``CACHE_BUDGET`` stands for the last-level-cache slice one core
     keeps hot between the Dx and D^T products of a block; on the card,

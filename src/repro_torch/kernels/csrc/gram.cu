@@ -37,10 +37,22 @@
 //     the copy instructions they save (PERF.md, section 6);
 //   * a per-panel partial first, then the running sum, so no chain adds
 //     more than 64 products before it joins the total.
-// K2b, gram_rhs_kernel (Gram + right-hand sides): 256 threads per tile, a
-// 4x4 block each, 32-row panels staged synchronously (upcast on the way
-// in); the diagonal CTAs also accumulate the tile's rows of C against a
-// 32-row panel of B, so the RHS rides the same read of D.
+// K2b, the same kernel with B as a second source (Gram + right-hand sides,
+// C = D^T B in the same read of D):
+//   * r <= 16 (kRide): the RHS rides the diagonal tiles. A diagonal tile
+//     stages one stripe of D, so the other half of each stage takes the
+//     panel's rows of B (f32, 4-byte cp.async, aligned for every r), and
+//     the warp that owns the mirrored quadrant, idle in K2a, forms the
+//     tile's 64 x r block of C: two rows a lane, 2 RP accumulators (RP is
+//     4 for r <= 4, else 16; a template argument), one float2 and
+//     RP / 4 broadcast float4 loads per staged row. At r = 1 that warp
+//     does 8 FMA a row to the other warps' 32, so the diagonal CTAs stay
+//     lighter than the full ones and are not the tail;
+//   * r > 16, and the later groups of a wide RHS (with_gram = 0): nt RHS
+//     tiles per split, after the Gram tiles in the grid, each an ordinary
+//     tile whose second stripe is B's 64 columns (zero past r). Their
+//     work is that of the C block itself, so the diagonal tiles keep K2a's
+//     balance at r = 64.
 // gram_reduce_kernel: one thread per output element sums the partials over
 // the splits in a fixed order and writes G[a][b] and, by mirroring the
 // upper tiles (and the upper half of diagonal ones), the lower triangle;
@@ -54,21 +66,15 @@
 namespace {
 
 constexpr int kTile = 64;     // output tile edge
-constexpr int kPanel = 64;    // K2a: rows per staged panel
-constexpr int kStages = 2;    // K2a: panels in the shared-memory ring
-constexpr int kTM = 8, kTN = 4;  // K2a: outputs per thread (fixed: the
+constexpr int kPanel = 64;    // rows per staged panel
+constexpr int kStages = 2;    // panels in the shared-memory ring
+constexpr int kTM = 8, kTN = 4;  // outputs per thread (fixed: the
                                  // loads and the quadrant map assume it)
 constexpr int kTileThreads = kTile * kTile / (kTM * kTN);
 constexpr int kCopyRows = kPanel * kTile / kTileThreads;  // per thread
 constexpr int kStageFloats = kPanel * 2 * kTile;  // [row][a | b]
-constexpr int kRows = 32;     // K2b: rows per staged panel
-constexpr int kThreads = 256;  // K2b
-constexpr int kRmax = 64;     // RHS columns per launch
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+constexpr int kRmax = kTile;  // RHS columns per launch (a tile's width)
+constexpr int kRide = 16;     // K2b: widest RHS that rides the diagonal tiles
 
 // Upper tile (ti, tj), ti <= tj, of the tile-th entry in row-major order
 // of the upper triangle of an nt x nt tile grid.
@@ -119,16 +125,29 @@ __device__ __forceinline__ void copy_column(float* dst,
   }
 }
 
-template <typename T>
+// Blocks [0, gtiles) of a split are the upper Gram tiles (gtiles is 0 when
+// only C is asked for); with own_rhs, blocks [gtiles, gtiles + nt) are the
+// RHS tiles C_i = D_i^T B. RP > 0: the diagonal tiles also form their rows
+// of C in the spare warp (r <= RP).
+template <typename T, int RP>
 __global__ void __launch_bounds__(kTileThreads)
-gram_tile_kernel(const T* __restrict__ D, long long m, int n, int nt,
-                 long long rows_per_split, float* __restrict__ gpart) {
+gram_tile_kernel(const T* __restrict__ D, const float* __restrict__ B,
+                 long long m, int n, int r, int nt, int gtiles,
+                 long long rows_per_split, float* __restrict__ gpart,
+                 float* __restrict__ cpart) {
+  static_assert(2 * RP <= kTM * kTN, "a ride lane's C rows fit its acc");
   extern __shared__ __align__(16) float stage[];  // [kStages][kPanel][2 kTile]
 
   const int tile = blockIdx.x, split = blockIdx.y;
+  const bool rhs_tile = tile >= gtiles;
   int ti, tj;
-  upper_tile(tile, nt, ti, tj);
-  const bool diag = ti == tj;
+  if (rhs_tile) {
+    ti = tile - gtiles;
+    tj = 0;
+  } else {
+    upper_tile(tile, nt, ti, tj);
+  }
+  const bool diag = !rhs_tile && ti == tj;
   const long long r_begin = (long long)split * rows_per_split;
   const long long r_end = min(m, r_begin + rows_per_split);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -136,15 +155,23 @@ gram_tile_kernel(const T* __restrict__ D, long long m, int n, int nt,
   // 8x4 block at row 8 (l / 8), column 4 (l % 8) of it
   const int row_g = 32 * (warp / 2) + kTM * (lane / 8);
   const int col_g = 32 * (warp % 2) + kTN * (lane % 8);
-  const bool skip = diag && warp == 2;
+  const bool skip = diag && warp == 2;  // the mirrored quadrant
+  const bool ride = RP > 0 && skip;     // ... forms the tile's rows of C
 
   // the copy: this thread's column of each stripe, rows [r0, r0 +
-  // kCopyRows) of the panel; diagonal tiles stage one stripe
+  // kCopyRows) of the panel. Stripe a is D's tile ti; stripe b is D's tile
+  // tj, or B (RHS tiles: its 64 columns; ride: its first RP), or nothing
+  // (a diagonal tile without RHS)
   const int col = tid % kTile, r0 = tid / kTile * kCopyRows;
-  const int ca = ti * kTile + col, cb = tj * kTile + col;
-  const bool oka = ca < n, okb = !diag && cb < n;
+  const int ca = ti * kTile + col;
+  const bool oka = ca < n;
+  const bool from_b = rhs_tile || (diag && RP > 0);
+  const bool copy_b = rhs_tile || !diag || (RP > 0 && col < RP);
+  const int cb = from_b ? col : tj * kTile + col;
+  const bool okb = from_b ? cb < r : (!diag && cb < n);
   const T* pa = D + (long long)r0 * n + (oka ? ca : 0);
-  const T* pb = D + (long long)r0 * n + (okb ? cb : 0);
+  const T* pd = D + (long long)r0 * n + (okb && !from_b ? cb : 0);
+  const float* pr = from_b ? B + (long long)r0 * r + (okb ? cb : 0) : nullptr;
   const int npanels = (int)((r_end - r_begin + kPanel - 1) / kPanel);
 
   auto issue = [&](int k) {
@@ -153,7 +180,12 @@ gram_tile_kernel(const T* __restrict__ D, long long m, int n, int nt,
       const long long row0 = r_begin + (long long)k * kPanel;
       const int rows = (int)min((long long)kPanel, r_end - row0);
       copy_column(st, pa + row0 * n, n, r0, rows, oka);
-      if (!diag) copy_column(st + kTile, pb + row0 * n, n, r0, rows, okb);
+      if (copy_b) {
+        if (from_b)
+          copy_column(st + kTile, pr + row0 * r, r, r0, rows, okb);
+        else
+          copy_column(st + kTile, pd + row0 * n, n, r0, rows, okb);
+      }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");  // maybe empty
   };
@@ -172,27 +204,57 @@ gram_tile_kernel(const T* __restrict__ D, long long m, int n, int nt,
     asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
     __syncthreads();
     issue(k + kStages - 1);
-    if (skip) continue;
     const float* st = stage + (k % kStages) * kStageFloats;
-    const float* A = st + row_g;
-    const float* B = st + (diag ? 0 : kTile) + col_g;
     float part[kTM][kTN];
 #pragma unroll
     for (int i = 0; i < kTM; ++i)
 #pragma unroll
       for (int j = 0; j < kTN; ++j) part[i][j] = 0.f;
+    if (ride) {
+      // rows 2 lane and 2 lane + 1 of the stripe against B's RP columns;
+      // entry (i, q) accumulates in part[(i RP + q) / 4][(i RP + q) % 4]
+      const float* A = st + 2 * lane;
+      const float* Bq = st + kTile;
 #pragma unroll 4
-    for (int r = 0; r < kPanel; ++r) {
-      const float4 a0 = *reinterpret_cast<const float4*>(A + r * 2 * kTile);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(A + r * 2 * kTile + 4);
-      const float4 b = *reinterpret_cast<const float4*>(B + r * 2 * kTile);
-      const float av[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[kTN] = {b.x, b.y, b.z, b.w};
+      for (int rr = 0; rr < kPanel; ++rr) {
+        const float2 a = *reinterpret_cast<const float2*>(A + rr * 2 * kTile);
+        float bv[RP > 0 ? RP : 1];
 #pragma unroll
-      for (int i = 0; i < kTM; ++i)
+        for (int q = 0; q < RP; q += 4) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(Bq + rr * 2 * kTile + q);
+          bv[q] = x.x;
+          bv[q + 1] = x.y;
+          bv[q + 2] = x.z;
+          bv[q + 3] = x.w;
+        }
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) part[i][j] += av[i] * bv[j];
+        for (int q = 0; q < RP; ++q) {
+          part[q / kTN][q % kTN] += a.x * bv[q];
+          part[(RP + q) / kTN][(RP + q) % kTN] += a.y * bv[q];
+        }
+      }
+    } else if (!skip) {
+      const float* A = st + row_g;
+      const float* Bs = st + (diag ? 0 : kTile) + col_g;
+#pragma unroll 4
+      for (int rr = 0; rr < kPanel; ++rr) {
+        const float4 a0 =
+            *reinterpret_cast<const float4*>(A + rr * 2 * kTile);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(A + rr * 2 * kTile + 4);
+        const float4 b =
+            *reinterpret_cast<const float4*>(Bs + rr * 2 * kTile);
+        const float av[kTM] = {a0.x, a0.y, a0.z, a0.w,
+                               a1.x, a1.y, a1.z, a1.w};
+        const float bv[kTN] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < kTM; ++i)
+#pragma unroll
+          for (int j = 0; j < kTN; ++j) part[i][j] += av[i] * bv[j];
+      }
+    } else {
+      continue;
     }
 #pragma unroll
     for (int i = 0; i < kTM; ++i)
@@ -200,123 +262,25 @@ gram_tile_kernel(const T* __restrict__ D, long long m, int n, int nt,
       for (int j = 0; j < kTN; ++j) acc[i][j] += part[i][j];
   }
 
+  if (ride || rhs_tile) cpart += ((size_t)split * nt + ti) * (kTile * kRmax);
+  if (ride) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int q = 0; q < RP; ++q)
+        cpart[(2 * lane + i) * kRmax + q] =
+            acc[(i * RP + q) / kTN][(i * RP + q) % kTN];
+    return;
+  }
   if (skip) return;
-  float* gp = gpart + ((size_t)split * gridDim.x + tile) * (kTile * kTile) +
-              row_g * kTile + col_g;
+  float* out = rhs_tile
+                   ? cpart
+                   : gpart + ((size_t)split * gtiles + tile) * (kTile * kTile);
+  out += row_g * kTile + col_g;  // kRmax == kTile: one tile layout
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
-    *reinterpret_cast<float4*>(gp + i * kTile) =
+    *reinterpret_cast<float4*>(out + i * kTile) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gram_rhs_kernel(const T* __restrict__ D, const float* __restrict__ B,
-                long long m, int n, int r, int with_gram, int nt,
-                long long rows_per_split, float* __restrict__ gpart,
-                float* __restrict__ cpart) {
-  __shared__ __align__(16) float As[kRows][kTile];
-  __shared__ __align__(16) float Bs[kRows][kTile];
-  __shared__ float Rs[kRows][kRmax];
-
-  const int tile = blockIdx.x;
-  const int split = blockIdx.y;
-  const int ntiles = gridDim.x;
-  int ti, tj;
-  upper_tile(tile, nt, ti, tj);
-  const bool diag = ti == tj;
-  if (!with_gram && !diag) return;
-
-  const long long r_begin = (long long)split * rows_per_split;
-  const long long r_end = min(m, r_begin + rows_per_split);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;       // 4x4 block of G
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float cacc[kRmax / 4];
-#pragma unroll
-  for (int k = 0; k < kRmax / 4; ++k) cacc[k] = 0.f;
-
-  const int col_a = ti * kTile, col_b = tj * kTile;
-  for (long long row0 = r_begin; row0 < r_end; row0 += kRows) {
-    for (int e = tid; e < kRows * kTile; e += kThreads) {
-      const int rr = e / kTile, c = e % kTile;
-      const long long row = row0 + rr;
-      const bool rok = row < r_end;
-      As[rr][c] = (rok && col_a + c < n) ? to_f32(D[row * n + col_a + c]) : 0.f;
-      if (!diag)
-        Bs[rr][c] =
-            (rok && col_b + c < n) ? to_f32(D[row * n + col_b + c]) : 0.f;
-    }
-    if (diag) {
-      for (int e = tid; e < kRows * r; e += kThreads) {  // columns q < r
-        const int rr = e / r, q = e % r;
-        const long long row = row0 + rr;
-        Rs[rr][q] = row < r_end ? B[row * r + q] : 0.f;
-      }
-    }
-    __syncthreads();
-    if (with_gram) {
-      const float(*Bp)[kTile] = diag ? As : Bs;
-      float part[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[i][j] = 0.f;
-#pragma unroll 8
-      for (int rr = 0; rr < kRows; ++rr) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[rr][ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Bp[rr][tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) part[i][j] += av[i] * bv[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
-    }
-    if (diag) {
-      // the tile's 64 x r entries of C go round the 256 threads: entry
-      // p = tid + 256 k is column p % 64, RHS p / 64; a warp whose entries
-      // are all past 64 r skips the block (r = 1 keeps two warps busy)
-#pragma unroll
-      for (int k = 0; k < kRmax / 4; ++k) {
-        const int p = tid + kThreads * k;
-        if (p < kTile * r) {
-          const int c = p % kTile, q = p / kTile;
-          float part = 0.f;
-          for (int rr = 0; rr < kRows; ++rr) part += As[rr][c] * Rs[rr][q];
-          cacc[k] += part;
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (with_gram) {
-    float* gp = gpart + ((size_t)split * ntiles + tile) * (kTile * kTile);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        gp[(ty * 4 + i) * kTile + tx * 4 + j] = acc[i][j];
-  }
-  if (diag) {
-    float* cp = cpart + ((size_t)split * nt + ti) * (kTile * kRmax);
-#pragma unroll
-    for (int k = 0; k < kRmax / 4; ++k) {
-      const int p = tid + kThreads * k;
-      if (p < kTile * r) cp[(p % kTile) * kRmax + p / kTile] = cacc[k];
-    }
-  }
 }
 
 __global__ void gram_reduce_kernel(const float* __restrict__ gpart, int n,
@@ -355,55 +319,61 @@ __global__ void rhs_reduce_kernel(const float* __restrict__ cpart, int n,
   C[(size_t)a * c_ld + c_off + q] = s;
 }
 
-template <typename T>
-cudaError_t launch_tile(const T* D, long long m, int n, int nt,
-                        long long rows_per_split, dim3 grid, float* gpart,
-                        cudaStream_t s) {
+template <typename T, int RP>
+cudaError_t launch_tile(const T* D, const float* B, long long m, int n, int r,
+                        int nt, int gtiles, bool own_rhs,
+                        long long rows_per_split, int splits, float* gpart,
+                        float* cpart, cudaStream_t s) {
   const int smem = kStages * kStageFloats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      gram_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gram_tile_kernel<T, RP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  gram_tile_kernel<T><<<grid, kTileThreads, smem, s>>>(D, m, n, nt,
-                                                       rows_per_split, gpart);
+  const dim3 grid(gtiles + (own_rhs ? nt : 0), splits);
+  gram_tile_kernel<T, RP><<<grid, kTileThreads, smem, s>>>(
+      D, B, m, n, r, nt, gtiles, rows_per_split, gpart, cpart);
   return cudaGetLastError();
 }
 
 template <typename T>
-int launch_gram(const void* D, const void* B, long long m, int n, int r,
+int launch_gram(const void* Dv, const void* Bv, long long m, int n, int r,
                 int with_gram, long long rows_per_split, int splits,
                 void* gpart, void* cpart, void* G, void* C, int c_ld,
                 int c_off, cudaStream_t s) {
+  if (rows_per_split % kPanel != 0) return cudaErrorInvalidValue;
   const int nt = (n + kTile - 1) / kTile;
-  const int ntiles = nt * (nt + 1) / 2;
-  dim3 grid(ntiles, splits);
+  const int gtiles = with_gram ? nt * (nt + 1) / 2 : 0;
+  const T* D = static_cast<const T*>(Dv);
+  const float* B = static_cast<const float*>(Bv);
+  float* gp = static_cast<float*>(gpart);
+  float* cp = static_cast<float*>(cpart);
+  // a narrow RHS rides the diagonal tiles; a wide one, or C alone, has
+  // tiles of its own
+  const bool own = r > kRide || (r > 0 && !with_gram);
   cudaError_t err;
-  if (r > 0) {
-    gram_rhs_kernel<T><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(D), static_cast<const float*>(B), m, n, r,
-        with_gram, nt, rows_per_split, static_cast<float*>(gpart),
-        static_cast<float*>(cpart));
-  } else {
-    if (rows_per_split % kPanel != 0) return cudaErrorInvalidValue;
-    err = launch_tile<T>(static_cast<const T*>(D), m, n, nt, rows_per_split,
-                         grid, static_cast<float*>(gpart), s);
-    if (err != cudaSuccess) return err;
-  }
-  err = cudaGetLastError();
+  if (r == 0 || own)
+    err = launch_tile<T, 0>(D, B, m, n, r, nt, gtiles, own, rows_per_split,
+                            splits, gp, cp, s);
+  else if (r <= 4)
+    err = launch_tile<T, 4>(D, B, m, n, r, nt, gtiles, false,
+                            rows_per_split, splits, gp, cp, s);
+  else
+    err = launch_tile<T, kRide>(D, B, m, n, r, nt, gtiles, false,
+                                rows_per_split, splits, gp, cp, s);
   if (err != cudaSuccess) return err;
   const int threads = 256;
   if (with_gram) {
     const long long total = (long long)n * n;
     gram_reduce_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
-                         0, s>>>(static_cast<const float*>(gpart), n, nt,
-                                 splits, static_cast<float*>(G));
+                         0, s>>>(gp, n, nt, splits, static_cast<float*>(G));
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   if (r > 0) {
     const long long total = (long long)n * r;
     rhs_reduce_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
-                        0, s>>>(static_cast<const float*>(cpart), n, r, nt,
-                                splits, c_ld, c_off, static_cast<float*>(C));
+                        0, s>>>(cp, n, r, nt, splits, c_ld, c_off,
+                                static_cast<float*>(C));
   }
   return cudaGetLastError();
 }
@@ -411,8 +381,8 @@ int launch_gram(const void* D, const void* B, long long m, int n, int r,
 }  // namespace
 
 // dtype: 0 = float32 D, 1 = bfloat16 D. B is float32 (m, r) row-major with
-// r <= 64; r = 0 computes the Gram alone (K2a, gram_tile_kernel; then
-// rows_per_split must be a multiple of 64). with_gram = 0 computes only C
+// r <= 64; r = 0 computes the Gram alone (K2a). rows_per_split must be a
+// multiple of 64. with_gram = 0 computes only C
 // (the later column groups of a wide RHS). gpart holds
 // splits * nt(nt+1)/2 * 64 * 64 floats, cpart splits * nt * 64 * 64
 // floats. C is written at columns [c_off, c_off + r) of a row-major

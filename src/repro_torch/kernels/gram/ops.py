@@ -1,8 +1,10 @@
 """K2 wrappers: G = D^T D (``gram``, K2a) and (D^T D, D^T B) in one read
 of D (``gram_and_rhs``, K2b); port of ``repro/kernels/gram/ops.py``.
 
-CUDA tensors go to ``csrc/gram.cu`` (``gram``: the 8x8-per-thread tile
-kernel with a cp.async ring; ``gram_and_rhs``: the RHS kernel); CPU
+CUDA tensors go to ``csrc/gram.cu``: one tile kernel (8x4 outputs per
+thread, a cp.async ring of 64-row panels) for both; ``gram_and_rhs``
+hands it B as a second source, which rides the diagonal tiles' spare warp
+for up to 16 columns and gets RHS tiles of its own past that. CPU
 tensors run the plain versions
 (:func:`gram_plain`, :func:`gram_and_rhs_plain`), which upcast one row
 block at a time; any other device raises. The TPU wrapper padded D to

@@ -15,6 +15,13 @@ reference's kernel returns NaN (ROADMAP section 3). Beyond the
 reference, the wrapper takes r, k, v and w_log as strided views (the model
 hands over its (B, S, H, hd) projections transposed, and no copy is made),
 returns y in r's layout, and returns the final state when asked.
+
+The kernel (one CTA per (b, h), the next chunk's rows in flight by 16-byte
+``cp.async``) takes each of r, k, v and w_log by that copy when its base
+and its batch, head and time strides are multiples of 16 bytes, as the
+model's projections are; a tensor that is not (a view offset along hd, an
+odd stride) is copied into the kernel's next stage by plain loads
+instead: the same result, with the load latency exposed.
 """
 from __future__ import annotations
 

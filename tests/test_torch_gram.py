@@ -167,11 +167,14 @@ def _gram_err(got, want):
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """K2a (the tile kernel) and K2b (the RHS kernel) against their plain
-    versions on the card: ragged n, m not a multiple of the 64-row panel,
-    D aligned and as a row-offset view (its base off 16-byte alignment),
-    f32 and bf16; two identical calls bitwise equal, G exactly symmetric.
-    Bound: chip_smoke.py's 1e-5 on the Cauchy-Schwarz scale."""
+    """K2a (Gram alone) and K2b (Gram + RHS, the same tile kernel with B as
+    a second source) against their plain versions on the card: ragged n, m
+    not a multiple of the 64-row panel, D aligned and as a row-offset view
+    (its base off 16-byte alignment), f32 and bf16, RHS widths 1 and 5
+    (riding the diagonal tiles), 64 (RHS tiles of their own) and 70 (two
+    groups, the second re-reading D for C alone); two identical calls
+    bitwise equal, G exactly symmetric. Bound: chip_smoke.py's 1e-5 on the
+    Cauchy-Schwarz scale."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel runs only on the card)")
     dev = torch.device("cuda")
@@ -179,23 +182,28 @@ def test_kernels_match_plain_on_card():
     for m, n in ((1000, 33), (4099, 307), (777, 130), (70001, 307)):
         for dt in (torch.float32, torch.bfloat16):
             base = torch.randn((m + 3, n), generator=g, device=dev).to(dt)
-            b = torch.randn((m, 5), generator=g, device=dev)
             for D in (base[:m], base[3:]):
                 assert D.is_contiguous()
-                launched = (tops.gram.launches, tops.gram_and_rhs.launches)
+                launched = tops.gram.launches
                 G1, G2, Gp = tops.gram(D), tops.gram(D), tops.gram_plain(D)
-                (H1, C1), (H2, C2) = tops.gram_and_rhs(D, b), \
-                    tops.gram_and_rhs(D, b)
-                Hp, Cp = tops.gram_and_rhs_plain(D, b)
                 torch.cuda.synchronize()
-                assert (tops.gram.launches, tops.gram_and_rhs.launches) \
-                    == (launched[0] + 2, launched[1] + 2)
+                assert tops.gram.launches == launched + 2
                 assert torch.equal(G1, G2) and torch.equal(G1, G1.T)
-                assert torch.equal(H1, H2) and torch.equal(C1, C2)
                 assert _gram_err(G1, Gp) <= 1e-5
-                assert _gram_err(H1, Hp) <= 1e-5
-                assert float((C1 - Cp).abs().max()) \
-                    <= 1e-5 * max(1.0, float(Cp.abs().max()))
+                for r in (1, 5, 64, 70):
+                    b = torch.randn((m, r), generator=g, device=dev)
+                    launched = tops.gram_and_rhs.launches
+                    (H1, C1), (H2, C2) = tops.gram_and_rhs(D, b), \
+                        tops.gram_and_rhs(D, b)
+                    Hp, Cp = tops.gram_and_rhs_plain(D, b)
+                    torch.cuda.synchronize()
+                    assert tops.gram_and_rhs.launches == launched + 2
+                    assert torch.equal(H1, H2) and torch.equal(C1, C2)
+                    assert torch.equal(H1, G1)
+                    assert _gram_err(H1, Hp) <= 1e-5
+                    assert C1.shape == Cp.shape == (n, r)
+                    assert float((C1 - Cp).abs().max()) \
+                        <= 1e-5 * max(1.0, float(Cp.abs().max()))
             # the bits depend on the values and shapes, not on where D
             # starts
             assert torch.equal(tops.gram(base[3:]),

@@ -202,27 +202,50 @@ def test_wkv_routes_by_device_and_checks_inputs():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
+    """K5 against its plain version on the card: the reference test's
+    shapes, chunk 4 and 17, chunk 1, T of one chunk, the realistic and the
+    hard decay (w_log = -50, clamped to -5), the model's (B, S, H, hd) view,
+    the (B, H, T, hd) contiguous layout and a view off 16-byte alignment
+    (staged by plain loads), f32 and bf16; two identical
+    calls bitwise equal. Bound: 2e-5 absolute."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel runs only on the card)")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    for (B, H, T, hd, chunk) in SHAPES + [(2, 3, 64, 64, 4),
-                                          (1, 2, 272, 64, 17)]:
+    shapes = [(*s, "data") for s in SHAPES + [(2, 3, 64, 64, 4),
+                                              (1, 2, 272, 64, 17),
+                                              (2, 3, 48, 64, 1),
+                                              (2, 3, 16, 64, 16),
+                                              (1, 2, 17, 32, 17)]]
+    shapes += [(1, 2, 64, 64, 16, "hard"), (1, 2, 34, 16, 17, "hard")]
+    for (B, H, T, hd, chunk, decay) in shapes:
         for dt in (torch.float32, torch.bfloat16):
-            r, k, v = ((0.5 * torch.randn((B, T, H, hd), generator=g,
-                                          device=dev)).to(dt).transpose(1, 2)
-                       for _ in range(3))
-            w_log = -torch.exp(torch.randn((B, H, T, hd), generator=g,
-                                           device=dev) - 2.0)
-            u = 0.3 * torch.randn((H, hd), generator=g, device=dev)
-            launched = tops.wkv.launches
-            y, S = tops.wkv(r, k, v, w_log, u, chunk=chunk,
-                            return_state=True)
-            y2, S2 = tops.wkv(r, k, v, w_log, u, chunk=chunk,
-                              return_state=True)
-            yp, Sp = tops.wkv_plain(r, k, v, w_log, u, chunk=chunk)
-            torch.cuda.synchronize()
-            assert tops.wkv.launches == launched + 2
-            assert torch.equal(y, y2) and torch.equal(S, S2)
-            assert float((y - yp).abs().max()) < 2e-5
-            assert float((S - Sp).abs().max()) < 2e-5
+            for layout in ("model", "bhtd", "offset"):
+                def make(scale, dtype=torch.float32):
+                    if layout == "bhtd":
+                        t = torch.randn((B, H, T, hd), generator=g,
+                                        device=dev)
+                        return (scale * t).to(dtype)
+                    # the model's (B, S, H, hd) view; "offset" starts one
+                    # element in, off 16-byte alignment
+                    extra = int(layout == "offset")
+                    t = torch.randn((B, T, H, hd + extra), generator=g,
+                                    device=dev)
+                    return (scale * t).to(dtype)[..., extra:].transpose(1, 2)
+                r, k, v = (make(0.5, dt) for _ in range(3))
+                w_log = -torch.exp(make(1.0) - 2.0) if decay == "data" \
+                    else make(0.0) - 50.0
+                u = 0.3 * torch.randn((H, hd), generator=g, device=dev)
+                launched = tops.wkv.launches
+                y, S = tops.wkv(r, k, v, w_log, u, chunk=chunk,
+                                return_state=True)
+                y2, S2 = tops.wkv(r, k, v, w_log, u, chunk=chunk,
+                                  return_state=True)
+                yp, Sp = tops.wkv_plain(r, k, v, w_log, u, chunk=chunk)
+                torch.cuda.synchronize()
+                assert tops.wkv.launches == launched + 2
+                assert torch.equal(y, y2) and torch.equal(S, S2)
+                assert y.stride() == torch.empty_like(
+                    r, dtype=torch.float32).stride()
+                assert float((y - yp).abs().max()) < 2e-5
+                assert float((S - Sp).abs().max()) < 2e-5
