@@ -12,7 +12,9 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
 3. kernels  — each kernel (K1 prox, K2a gram, K2b gram+rhs, K3 admm_iter,
               K4 flash attention, K5 wkv) against its plain PyTorch version
               on the card at ragged shapes, f32 and bf16, all five prox
-              kinds, K2a on a row-offset view (the same bits as on an
+              kinds, K1's logistic chain on a hard grid (|z| to 1000,
+              deltas 1e-3 to 1e3, labels -1, 0, 1; also against the mirror
+              of its chain and the float64 root), K2a on a row-offset view (the same bits as on an
               aligned copy), K3's two routes (the
               ring for n <= 512; the wide kernel past it and pinned at
               n = 307), K4's GQA groups, head dims and masks on both routes
@@ -36,7 +38,9 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               ``D.T @ [D | a]``; both are held to a float64 Gram); K3 on
               both routes
               at the f32 shape and on the bf16 copy (the ring must beat the
-              wide kernel in f32).
+              wide kernel in f32), with the hinge prox beside the logistic
+              one; probes (printed): K1's blocks per SM, and every ring
+              grid K3 takes, f32 and bf16.
    The ADMM tensors are then freed, and the LM slices run, qwen3-8b then
    rwkv6-1.6b, each at full width and depth (f32 weights, random from the
    seed; each freed before the next):
@@ -91,9 +95,23 @@ KINDS = ("logistic", "hinge", "l1", "least_squares", "quantile")
 PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
          "H100 NVL": (3.9e12, 60e12, 835e12),
          "H100": (3.35e12, 67e12, 989.4e12)}
-# FP32 operations per element of the prox (exp and division count as one;
-# the bisection step is ~12, a clamped Newton step ~16).
-PROX_FLOPS = {"logistic": 40 * 12 + 3 * 16 + 2, "hinge": 8, "l1": 6,
+
+
+def logistic_flops(delta: float, newton_iters: int = 3) -> int:
+    """FP32 operations per element of the logistic prox of csrc/prox.cuh
+    (an exp, a reciprocal or a division counts as one): the bracket 13 (one
+    exp), a bisection step 10 (one exp; ceil(log2 delta) of them), the
+    start and 1/delta 7, a Newton step 14 (one exp, two divisions; 5 less
+    the clamped steps, at least 2), a clamped Newton step of the reference
+    18. At delta = 10, 3 clamped steps: 13 + 40 + 7 + 28 + 54 = 142."""
+    nb = math.ceil(math.log2(delta)) if delta > 1 else 0
+    return 13 + 10 * nb + 7 + 14 * max(2, 5 - newton_iters) \
+        + 18 * newton_iters
+
+
+# FP32 operations per element of the prox, the logistic one at the main
+# path's delta = 1 / tau = 10
+PROX_FLOPS = {"logistic": logistic_flops(10.0), "hinge": 8, "l1": 6,
               "least_squares": 6, "quantile": 10}
 SOURCES = {
     "K1_prox_update": ("src/repro_torch/kernels/csrc/prox.cu",
@@ -238,6 +256,54 @@ def phase_kernels(torch, rt):
             check(e <= 4e-6 and torch.equal(y1, y1b) and torch.equal(l1, l1b),
                   f"K1 prox {kind:13s} m={m}: rel err {e:.2e} <= 4e-6, "
                   "bitwise repeat")
+    # K1 logistic on the hard grid (tests/test_torch_prox.py): z uniform on
+    # [-1000, 1000], z ~ N(0, 9) and the edges 0, +-1e-30, +-30, +-88, with
+    # labels -1, 0 and 1; deltas 1e-3 to 1e3 (0 to 10 bisection steps);
+    # 0, 3 and 8 clamped Newton steps. Against the plain version (the
+    # reference's 40 bisection steps) and the mirror of the kernel's chain,
+    # 4e-6 of max(1, max |y|) for each label; element by element within 4
+    # float32 rounding bands of the float64 root
+    from repro_torch.kernels.prox.ref import (logistic_prox_bracketed,
+                                              logistic_root_band)
+    zs = torch.cat([2000 * torch.rand(20000, generator=g, device=dev) - 1000,
+                    3 * randn(20000),
+                    torch.tensor([0.0, 1e-30, -1e-30, 30.0, -30.0, 88.0,
+                                  -88.0], device=dev)])
+    labels = (-1.0, 0.0, 1.0)
+    z = zs.repeat(len(labels))
+    a = torch.tensor(labels, device=dev).repeat_interleave(zs.numel())
+    zero = torch.zeros_like(z)
+
+    def per_label(got, want):
+        return max(rel_err(torch, got[a == lab], want[a == lab])
+                   for lab in labels)
+
+    worst = {"plain": 0.0, "mirror": 0.0, "bands": 0.0, "plain bands": 0.0}
+    for delta in (1e-3, 0.05, 1.0, 4.0, 10.0, 20.0, 100.0, 1e3):
+        root, band = logistic_root_band(z, delta, a)
+        for ni in (0, 3, 8):
+            y1, l1 = prox_ops.prox_update(z, zero, a, kind="logistic",
+                                          delta=delta, newton_iters=ni)
+            y1b, l1b = prox_ops.prox_update(z, zero, a, kind="logistic",
+                                            delta=delta, newton_iters=ni)
+            yp, _ = prox_ops.prox_update_plain(z, zero, a, kind="logistic",
+                                               delta=delta, newton_iters=ni)
+            ym = logistic_prox_bracketed(z, delta, a, ni)
+            e = {"plain": per_label(y1, yp), "mirror": per_label(y1, ym),
+                 "bands": float(((y1.double() - root).abs() / band).max()),
+                 "plain bands": float(((yp.double() - root).abs()
+                                       / band).max())}
+            worst = {k: max(v, e[k]) for k, v in worst.items()}
+            check(e["plain"] <= 4e-6 and e["mirror"] <= 4e-6
+                  and e["bands"] <= 4.0 and torch.equal(y1, y1b)
+                  and torch.equal(l1, l1b),
+                  f"K1 logistic hard grid delta={delta:g} newton_iters={ni}:"
+                  f" vs plain {e['plain']:.2e}, vs mirror {e['mirror']:.2e}"
+                  f" <= 4e-6; vs the f64 root {e['bands']:.2f} rounding "
+                  f"bands <= 4 (plain {e['plain bands']:.2f}); bitwise "
+                  "repeat")
+    print("K1 hard grid, worst: " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                              worst.items()), flush=True)
     # K2a / K2b: ragged n, f32 and bf16, RHS widths 1, 5, 16 (riding the
     # diagonal tiles) and 70 (RHS tiles of their own, two groups); K2a also
     # on a row-offset view (its base off 16-byte alignment), which must give
@@ -465,6 +531,7 @@ def phase_timing(torch, rt, reps: int):
     from repro_torch.kernels.admm_iter import ops as iter_ops
     from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.kernels.prox import ops as prox_ops
+    from repro_torch.kernels.prox.ref import logistic_prox_bracketed
 
     D3, lab, x, y, lam = rt["main"]
     m, n = D3.shape[1], D3.shape[2]
@@ -482,11 +549,28 @@ def phase_timing(torch, rt, reps: int):
     p1 = lambda: prox_ops.prox_update_plain(Dx, lam, a, kind="logistic",
                                             delta=delta)
     (yk, lk), (yp, lp) = k1(), p1()
+    ym = logistic_prox_bracketed(Dx + lam, delta, a)
     err = max(float((yk - yp).abs().max()), float((lk - lp).abs().max()))
-    check(max(rel_err(torch, yk, yp), rel_err(torch, lk, lp)) <= 4e-6,
-          f"K1 at m={m}: err {err:.2e}")
+    e_m = rel_err(torch, yk, ym)
+    check(max(rel_err(torch, yk, yp), rel_err(torch, lk, lp)) <= 4e-6
+          and e_m <= 4e-6,
+          f"K1 at m={m}: err {err:.2e}; vs the mirror of its chain "
+          f"{e_m:.2e} <= 4e-6")
+    del yk, lk, yp, lp, ym
     record(rt, "K1_prox_update", err, timer(k1), timer(p1),
            bound(rt, 5 * m * 4, m * PROX_FLOPS["logistic"]), None)
+    # K1's grid: blocks of 256 threads per SM in the grid-stride launch
+    default = prox_ops.BLOCKS_PER_SM
+    probe = {}
+    try:
+        for bps in (4, 8, 16, 32, 64, 128, 512):
+            prox_ops.BLOCKS_PER_SM = bps
+            probe[bps] = timer(k1)
+    finally:
+        prox_ops.BLOCKS_PER_SM = default
+    print("K1 grid probe (blocks per SM: ms): " + ", ".join(
+        f"{b}: {t:.4f}" for b, t in probe.items()) + f"; default {default}",
+        flush=True)
 
     # K2a at the main path's D
     G1, G2 = gram_ops.gram(D), gram_ops.gram_plain(D)
@@ -595,12 +679,51 @@ def phase_timing(torch, rt, reps: int):
             print(f"time K3_admm_iter [{route}] {label} D: kernel {t:.3f} "
                   f"ms, {nbytes / t / 1e6:.0f} GB/s, bound {tb[0]:.3f} ms "
                   f"({tb[1]})", flush=True)
+        # the hinge prox (a few operations) beside the logistic one: the
+        # logistic prox's share of K3, measured
+        hinge = lambda: iter_ops.admm_iter_full(DD, a, y, lam, x,
+                                                kind="hinge", delta=2.0)
+        times[label, "hinge"] = timer(hinge)
+        t = times[label, "hinge"]
+        print(f"time K3_admm_iter [ring] {label} D, hinge prox: kernel "
+              f"{t:.3f} ms, {nbytes / t / 1e6:.0f} GB/s; logistic - hinge "
+              f"{times[label, 'ring'] - t:.3f} ms", flush=True)
+        ring_grid_sweep(torch, autotune, iter_ops, DD, k3(DD), reps)
     check(times["f32", "ring"] < times["f32", "wide"],
           f"K3 ring {times['f32', 'ring']:.3f} ms < wide "
           f"{times['f32', 'wide']:.3f} ms at {m}x{n} f32")
     record(rt, "K3_admm_iter", err, times["f32", "ring"], timer(p3),
            bound(rt, m * n * 4 + 5 * m * 4 + 4 * n * 4, nflops), None)
     del Db
+
+
+def ring_grid_sweep(torch, autotune, iter_ops, D, fn, reps):
+    """K3's ring route on D at every grid it takes
+    (``autotune.ring_grids``), timed in two passes (the second in reverse
+    order); prints every grid's two times, fastest first, and the
+    autotuned grid's place. Timings only: the grid a user gets is
+    autotune.iter_grid's."""
+    m, n = D.shape
+    key = ("iter", m, n, str(D.dtype)[6:])
+    tuned = tuple(autotune.iter_grid(m, n, D.dtype))
+    timer = Timer(torch, reps)
+    grids = autotune.ring_grids(m, n, D.element_size())
+    res = {g: [] for g in grids}
+    try:
+        for order in (grids, grids[::-1]):
+            for grid in order:
+                autotune.CACHE[key] = grid
+                res[grid].append(timer(fn))
+    finally:
+        autotune.CACHE[key] = tuned
+    best = sorted(res, key=lambda g: min(res[g]))
+    place = best.index(tuned) + 1 if tuned in res else None
+    print(f"K3 ring grid sweep {str(D.dtype)[6:]}, {len(res)} grids "
+          "(rows, stages, warps: ms, two passes), fastest first: "
+          + ", ".join(f"({g[1]}, {g[3]}, {g[4]}): {res[g][0]:.3f} "
+                      f"{res[g][1]:.3f}" for g in best)
+          + f"; autotuned ({tuned[1]}, {tuned[3]}, {tuned[4]}) place "
+          f"{place}", flush=True)
 
 
 # K4's tensor-core kernel against the plain version with P rounded to bf16

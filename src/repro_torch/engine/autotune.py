@@ -15,9 +15,10 @@ Budgets:
         row) stream through a ring of S shared-memory stages of
         ``R n dsize + 16`` bytes each, beside x and the warps' row weights
         (``ring_smem``), within one block's 227 KB (``SMEM_PER_BLOCK``).
-        W and R maximise the rows held at once, W x R, with S = W + 1 (at
-        least one stage always in flight); S then grows to what fits, at
-        most 16 (n = 307: W 8, R 20, S 9 in f32; W 8, R 32, S 11 in bf16);
+        W warps hold a stage each while S - W stages are in flight; W and
+        R balance the two rates (``_ring_grid``) with S as large as fits,
+        at most 16 (n = 307: W 5, R 20, S 9 in f32; W 7, R 32, S 11 in
+        bf16);
       - ``"wide"`` for larger n: 256 threads stage an (R, n) f32 panel plus
         x and the (3, n) accumulators, ``(R n + 4 n + 128) * 4`` bytes; the
         model keeps a CTA under ``WIDE_SMEM_TARGET`` where R = 1 fits, so
@@ -52,6 +53,10 @@ RING_MAX_N = 512                   # K3 ring: 16 columns per lane
 RING_MAX_STAGES = 16
 RING_MAX_WARPS = 8
 RING_BAR_BYTES = 2 * RING_MAX_STAGES * 8
+# K3 ring: a stage's copy time over a consumer warp's time on it, by the
+# bytes of D's element; fitted to chip_smoke.py's sweep of every ring grid
+# at n = 307 on an H100 (PERF.md), where they put the fastest grids first
+RING_COPY_RATIO = {4: 0.8, 2: 0.57}
 WIDE_SMEM_TARGET = 56 * 1024       # per K3 wide CTA: four CTAs per SM
 WIDE_CTAS_PER_SM = 4
 GRAM_PANEL = 64                    # K2a rows per staged panel
@@ -112,33 +117,42 @@ def iter_grid(m: int, n: int, dtype) -> IterGrid:
     return IterGrid(*CACHE[key])
 
 
-def _ring_grid(m, n, dsize):
-    """The ring's shape, or None when n is past it. A row stays in shared
-    memory from its Dx through the prox to the sweep, so the rows held at
-    once, W x R (consumer warps x rows per stage), set the pace of a
-    costly prox: W and R maximise W x R with S = W + 1 stages (R a multiple
-    of the rows that make 16 bytes, where that leaves one), then S grows to
-    what fits, at most 16."""
+def ring_grids(m, n, dsize):
+    """Every shape the ring kernel takes for an (m, n) D of ``dsize``-byte
+    elements: W consumer warps, R rows a stage (a multiple of the rows that
+    make 16 bytes), and S the most stages that fit beside them, at most 16,
+    which must outnumber the warps and hold their accumulators at the end.
+    Empty when n is past the ring."""
     if n > RING_MAX_N:
-        return None
+        return []
     unit = 16 // dsize
-    best = None
-    for warps in range(RING_MAX_WARPS, 0, -1):
-        room = SMEM_PER_BLOCK - ring_smem(n, dsize, 0, warps)
-        rows = min(RING_ROWS, ((room // (warps + 1)) // 16 * 16 - 16)
-                   // (n * dsize))
-        rows = rows // unit * unit if rows >= unit else rows
-        if rows >= 1 and (best is None or warps * rows > best[0] * best[1]):
-            best = (warps, rows)
-    if best is None:
-        return None
-    warps, rows = best
-    room = SMEM_PER_BLOCK - ring_smem(n, dsize, 0, warps)
-    stages = min(RING_MAX_STAGES,
-                 room // (ring_smem(n, dsize, 1, 0, rows)
-                          - ring_smem(n, dsize, 0, 0, rows)))
-    ctas = max(1, min(SM_COUNT, -(-m // rows)))
-    return ("ring", rows, ctas, stages, warps)
+    grids = []
+    for warps in range(1, RING_MAX_WARPS + 1):
+        for rows in range(unit, RING_ROWS + 1, unit):
+            fixed = ring_smem(n, dsize, 0, warps, rows)
+            stage = ring_smem(n, dsize, 1, 0, rows) \
+                - ring_smem(n, dsize, 0, 0, rows)
+            stages = min(RING_MAX_STAGES, (SMEM_PER_BLOCK - fixed) // stage)
+            if stages > warps and stages * stage >= warps * 3 * n * 4:
+                grids.append(("ring", rows, max(1, min(SM_COUNT,
+                                                       -(-m // rows))),
+                              stages, warps))
+    return grids
+
+
+def _ring_grid(m, n, dsize):
+    """The ring's shape, or None when n is past it. A consumer warp holds
+    its stage from the Dx through the prox to the sweep; the producer's
+    copies need the other S - W stages. With a stage's copy taking c times
+    as long as a warp's pass over it (``RING_COPY_RATIO``), the ring moves
+    R min(c W, S - W) rows in the time of one copy: W warps bound the
+    consumers' rate, S - W stages in flight the copies'. Of
+    ``ring_grids``, the one that maximises that rate, ties going to more
+    rows."""
+    c = RING_COPY_RATIO[dsize]
+    return max(ring_grids(m, n, dsize), default=None,
+               key=lambda g: (g[1] * min(c * g[4], g[3] - g[4]), g[1],
+                              g[4]))
 
 
 def _wide_grid(m, n):

@@ -9,9 +9,9 @@
 // Bound on the card: bytes. Each iteration must read D once (m n 4 bytes
 // in f32, half that in bf16) plus five m-vectors; the 8n FLOP per row are
 // ~2 FLOP per byte, far below the card's FP32 ridge. The logistic prox
-// (40 bisection and 3 Newton steps, each an IEEE expf and two IEEE
-// divisions) is a long dependent chain per row that must run under the
-// copies, not beside them.
+// (prox.cuh: a bracket from one expf, ceil(log2 delta) bisection steps, 2
+// Newton steps and 3 clamped ones) is a dependent chain per row that must
+// run under the copies, not beside them.
 //
 // The TPU kernel streamed (bm x n) panels through VMEM with the d/w/v
 // accumulators resident across a sequential grid. Two routes here, picked
@@ -24,9 +24,10 @@
 //     (f32) or 8 (bf16), so one elected producer thread fetches it with a
 //     1-D bulk copy (cp.async.bulk) into a ring of 2-16 shared-memory
 //     stages guarded by full / empty mbarriers. A row stays in its stage
-//     from its Dx through the prox to the sweep, so W x R rows held at once
-//     set the pace of the logistic prox's long chain: the grid maximises
-//     them within 227 KB (n = 307 f32: W 8 consumer warps, R 20, 9 stages). Bytes before the first and after
+//     from its Dx through the prox to the sweep, so the W stages the
+//     consumer warps hold and the S - W in flight share the 227 KB: the
+//     grid balances the two (engine/autotune.py::_ring_grid; n = 307 f32:
+//     W 5 consumer warps, R 20, 9 stages). Bytes before the first and after
 //     the last 16-byte boundary of a panel (a ragged last panel, a
 //     row-offset view of D) are copied by the same thread with plain loads
 //     before it arrives; the stage keeps the global address modulo 16, so

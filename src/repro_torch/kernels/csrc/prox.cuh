@@ -4,16 +4,18 @@
 // and K3 inline the same Python function). One header keeps the two CUDA
 // kernels from drifting apart: both instantiate prox_body<KIND>.
 //
-// Arithmetic follows the reference step for step, in float32:
-//   logistic       40 bisection steps on the monotone phi'(y) over
-//                  [z - delta, z + delta], then `newton_iters` Newton steps
-//                  clamped to [-delta, delta];
+// The closed forms follow the reference step for step, in float32:
 //   hinge          z + l * max(min(1 - l z, delta), 0);
 //   l1             sign(z) * max(|z| - delta, 0);
 //   least_squares  (z + delta b) / (1 + delta);
 //   quantile       asymmetric soft-threshold of z - b at level q = param.
-// expf and IEEE division are used on purpose (the build passes no
-// --use_fast_math): the bisection compares the sign of phi' near its root.
+// The logistic prox computes the reference's function, the root of the
+// strictly increasing phi'(y) = -a sigmoid(-a y) + (y - z) / delta
+// followed by `newton_iters` Newton steps clamped to [-delta, delta], by a
+// shorter chain than the reference's 40 bisection steps (logistic_root).
+// The clamped steps are the reference's own, with IEEE expf and division
+// (the build passes no --use_fast_math), so the root is settled by the
+// same arithmetic as the reference's last steps.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,20 +34,63 @@ __device__ __forceinline__ float sigmoid_f32(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// Newton steps in all, before the clamped ones and with them: from a start
+// within 1 of the root, four steps reach the float32 rounding band of the
+// root (tests/test_torch_prox.py holds this at newton_iters = 0); five
+// leave a margin.
+constexpr int kLogisticNewtonSteps = 5;
+
+// The root of phi'(y) = -a sigmoid(-a y) + (y - z) / delta, in four steps:
+//   1. a bracket from one expf: with y1 = z + delta a sigmoid(-a z), phi'(z)
+//      has the sign of -a and phi'(y1) the other sign or 0, so the root
+//      lies between z and y1 (y = z for a = 0); intersected with the
+//      reference's [z - delta, z + delta]. Its width is at most
+//      delta sigmoid(-a z), small on rows the model already classifies;
+//   2. bisection until the width is at most 1: as many steps as halvings
+//      take delta to 1 (4 at delta = 10), the same count for every row of a
+//      launch, so no warp diverges. The sign test has no division:
+//      sign phi'(y) = sign((y - z)(1 + e^{a y}) - delta a) for delta > 0;
+//   3. the start: phi' is convex for y < 0 and concave for y > 0 (any
+//      a != 0), and phi'(0) < 0 exactly when z > -delta a / 2, i.e. the
+//      root is positive. Newton converges monotonically from the left of a
+//      root in the concave part and from the right of one in the convex
+//      part, never leaving the bracket: start at max(lo, 0) or min(hi, 0);
+//   4. Newton steps from there; the count makes kLogisticNewtonSteps with
+//      the clamped steps that follow, and at least 2. Fast reciprocal and
+//      division: a step's rounding moves where the next step starts, not
+//      where the steps settle.
+__device__ __forceinline__ float logistic_root(float z, float delta, float a,
+                                               int newton_iters) {
+  const float da = delta * a;
+  const float y1 = z + da * __fdividef(1.f, 1.f + expf(a * z));
+  float lo = fmaxf(fminf(z, y1), z - delta);
+  float hi = fminf(fmaxf(z, y1), z + delta);
+  int nb = 0;
+  for (float w = delta; w > 1.f && nb < 128; w *= 0.5f) ++nb;
+  for (int i = 0; i < nb; ++i) {
+    const float mid = 0.5f * (lo + hi);
+    const bool pos = (mid - z) * (1.f + expf(a * mid)) > da;
+    lo = pos ? lo : mid;
+    hi = pos ? mid : hi;
+  }
+  float y = z > -0.5f * da ? fmaxf(lo, 0.f) : fminf(hi, 0.f);
+  const float inv = 1.f / delta;
+  const float a2 = a * a;
+  const int steps = max(2, kLogisticNewtonSteps - newton_iters);
+  for (int i = 0; i < steps; ++i) {
+    const float s = __fdividef(1.f, 1.f + expf(a * y));
+    const float g = fmaf(-a, s, (y - z) * inv);
+    const float h = fmaf(a2 * s, 1.f - s, inv);
+    y -= __fdividef(g, h);
+  }
+  return y;
+}
+
 template <int KIND>
 __device__ __forceinline__ float prox_body(float z, float delta, float aux,
                                            int newton_iters, float param) {
   if (KIND == kLogistic) {
-    float lo = z - delta;
-    float hi = z + delta;
-    for (int i = 0; i < 40; ++i) {
-      const float mid = 0.5f * (lo + hi);
-      const bool pos =
-          (-aux * sigmoid_f32(-aux * mid) + (mid - z) / delta) > 0.f;
-      lo = pos ? lo : mid;
-      hi = pos ? mid : hi;
-    }
-    float y = 0.5f * (lo + hi);
+    float y = logistic_root(z, delta, aux, newton_iters);
     for (int i = 0; i < newton_iters; ++i) {
       const float s = sigmoid_f32(-aux * y);
       const float g = -aux * s + (y - z) / delta;

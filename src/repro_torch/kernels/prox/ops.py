@@ -15,6 +15,8 @@ from repro_torch.kernels.prox.ref import prox_update_ref
 
 KIND_IDS = {"logistic": 0, "hinge": 1, "l1": 2, "least_squares": 3,
             "quantile": 4}
+THREADS = 256          # a block (csrc/prox.cu)
+BLOCKS_PER_SM = 32     # the grid-stride launch's blocks, per SM of 132
 
 
 def prox_update_plain(Dx, lam, aux, *, kind: str, delta: float,
@@ -39,7 +41,7 @@ def prox_update(Dx: torch.Tensor, lam: torch.Tensor,
     y = torch.empty_like(Dx)
     lam_out = torch.empty_like(Dx)
     m = Dx.numel()
-    blocks = max(1, min(-(-m // 256), 132 * 8))
+    blocks = max(1, min(-(-m // THREADS), 132 * BLOCKS_PER_SM))
     rc = build.library().repro_prox_update(
         Dx.data_ptr(), lam.data_ptr(), build.ptr(aux), y.data_ptr(),
         lam_out.data_ptr(), m, KIND_IDS[kind], float(delta),
