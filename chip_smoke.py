@@ -41,10 +41,22 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               wide kernel in f32), with the hinge prox beside the logistic
               one; probes (printed): K1's blocks per SM, and every ring
               grid K3 takes, f32 and bf16.
-   The ADMM tensors are then freed, and the LM slices run, qwen3-8b then
+   The ADMM tensors are then freed.
+6. problems — the problem surface at the paper's lasso (section 10.1 /
+              Fig. 1c: 320 nodes x 50,000 rows x 200 features,
+              heterogeneous, 12.8 GB f32) through ``fit()``: lasso (method
+              transpose and its fasta alias), ridge, elastic_net and nnls,
+              one K2b launch each (counted: 5), then FASTA or a Cholesky
+              solve on the 200 x 200 Gram; K2b's (G, c) and each x held
+              against float64; the consensus baseline on the same data
+              (time to model against transpose). Then every registry key
+              and every executor problem at N 4 x m_i 250 x n 20 on the
+              card against the same call on the CPU, and K2b timed at the
+              lasso's shape against its plain version and D.T @ [D | b].
+   The lasso data are freed, and the LM slices run, qwen3-8b then
    rwkv6-1.6b, each at full width and depth (f32 weights, random from the
    seed; each freed before the next):
-6. lm main  — ``forward`` through the slice's kernel (K4 for qwen3-8b at
+7. lm main  — ``forward`` through the slice's kernel (K4 for qwen3-8b at
               B 2 x S 4096, K5 for rwkv6-1.6b at B 8 x T 4096) and
               ``loss_fn``, with the kernel's count set to 0 just before and
               read just after (one launch per layer and forward; K4's
@@ -53,10 +65,10 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               decode steps against ``forward``'s logits; then the same at
               full width, 4 layers and f32 compute with tight bounds
               (K4: all on the FMA route).
-7. serve    — ``repro_torch.launch.serve.main`` at full size (batch 8,
+8. serve    — ``repro_torch.launch.serve.main`` at full size (batch 8,
               prompt 2048, 64 generated tokens): prefill seconds, decode
               ms/step and tok/s.
-8. timing   — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
+9. timing   — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
               bf16, causal) against its plain version and
               ``scaled_dot_product_attention``, and the FMA route on f32
               copies of the same inputs (printed); K5 at the rwkv lm shape
@@ -120,6 +132,9 @@ SOURCES = {
                  "src/repro/kernels/gram/gram.py:149"),
     "K2b_gram_and_rhs": ("src/repro_torch/kernels/csrc/gram.cu",
                          "src/repro/kernels/gram/gram.py:101"),
+    # K2b on the lasso path (r = 1, n = 200)
+    "K2b_gram_and_rhs_lasso": ("src/repro_torch/kernels/csrc/gram.cu",
+                               "src/repro/kernels/gram/gram.py:101"),
     "K3_admm_iter": ("src/repro_torch/kernels/csrc/admm_iter.cu",
                      "src/repro/kernels/admm_iter/admm_iter.py:82"),
     # bf16 at D 64 / 128, the main path's route; f32 and D 16 take
@@ -590,11 +605,7 @@ def phase_timing(torch, rt, reps: int):
     check(k2a_ms < lib_ms, f"K2a {k2a_ms:.3f} ms < D.T @ D {lib_ms:.3f} ms")
     # the Gram's own accuracy: K2a, its plain version and the library call
     # against a float64 Gram of the same D (Cauchy-Schwarz scale)
-    G64 = torch.zeros((n, n), dtype=torch.float64, device=D.device)
-    for s in range(0, m, 1 << 20):
-        blk = D[s:s + (1 << 20)].double()
-        G64 += blk.T @ blk
-    del blk
+    G64, _ = f64_stats(torch, D, a)
     errs = {name: gram_err(torch, G, G64) for name, G in (
         ("K2a", G1), ("plain", G2), ("library D.T @ D", D.T @ D))}
     print("gram vs f64: " + ", ".join(f"{k} {v:.2e}" for k, v in
@@ -724,6 +735,331 @@ def ring_grid_sweep(torch, autotune, iter_ops, D, fn, reps):
                       f"{res[g][1]:.3f}" for g in best)
           + f"; autotuned ({tuned[1]}, {tuned[3]}, {tuned[4]}) place "
           f"{place}", flush=True)
+
+
+# The paper's lasso (section 10.1 / Fig. 1c) at its per-node width: the JAX
+# CLI's documented 50,000 x 200 per node, 320 nodes, heterogeneous
+LASSO = dict(N=320, m_per_node=50_000, n=200)
+LASSO_ITERS = 500            # FASTA iterations of the gram-path fits
+CONSENSUS_ITERS = 400        # outer iterations of the consensus baseline
+SMALL = dict(N=4, m_per_node=250, n=20)   # the JAX tests' size
+SMALL_ITERS = 60             # registry keys on the card (SVM consensus: 40)
+GRAM_KEYS = (("lasso", "transpose"), ("lasso", "fasta"),
+             ("ridge", "transpose"), ("elastic_net", "transpose"),
+             ("nnls", "transpose"))
+
+
+def f64_stats(torch, D2, b2, block=1 << 20):
+    """(G, c) in float64 over row blocks."""
+    n = D2.shape[1]
+    G = torch.zeros((n, n), dtype=torch.float64, device=D2.device)
+    c = torch.zeros((n,), dtype=torch.float64, device=D2.device)
+    for s in range(0, D2.shape[0], block):
+        blk = D2[s:s + block].double()
+        G += blk.T @ blk
+        c += blk.T @ b2[s:s + block].double()
+    return G, c
+
+
+def lasso_obj(torch, G, c, bb, x, mu):
+    """0.5 ||Dx - b||^2 + mu |x|_1 from float64 (G, c, ||b||^2)."""
+    x = x.double()
+    return float(0.5 * x @ G @ x - c @ x + 0.5 * bb
+                 + mu * torch.sum(torch.abs(x)))
+
+
+def phase_problems(torch, rt, reps: int):
+    """The problem surface: the paper's lasso through ``fit()`` at full
+    size (K2b, then FASTA on the 200 x 200 Gram) with the other gram-path
+    problems and the consensus baseline; every registry key and every
+    executor problem small, card against CPU; K2b timed at the lasso's
+    shape."""
+    from repro_torch.core.fasta import transpose_reduction_lasso
+    from repro_torch.core.fit import fit
+    from repro_torch.data.synthetic import lasso_problem
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.service import registry
+
+    t0 = time.perf_counter()
+    prob = lasso_problem(SEED, LASSO["N"], LASSO["m_per_node"], LASSO["n"],
+                         heterogeneity=1.0)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    D, b, mu = prob.D, prob.b, float(prob.mu)
+    N, mi, n = D.shape
+    m = N * mi
+    D2, b2 = D.reshape(m, n), b.reshape(m)
+    print(f"lasso: {N} nodes x {mi} rows x {n} features f32 "
+          f"({D.numel() * 4 / 1e9:.1f} GB), heterogeneous, mu {mu:.6g}; "
+          f"data {data_s:.2f} s", flush=True)
+    check(bool(torch.isfinite(D).all()) and bool(torch.isfinite(b).all()),
+          "lasso data finite")
+
+    # the gram-path fits, K2b's count set to 0 just before; the K2b call
+    # inside each fit timed by CUDA events around the registry's
+    # gram_stats
+    real_stats = registry.gram_stats
+    k2b_ms = []
+
+    def timed_stats(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real_stats(*a, **k)
+        e1.record()
+        e1.synchronize()
+        k2b_ms.append(e0.elapsed_time(e1))
+        return out
+
+    extra = {"lasso": dict(mu=mu), "ridge": {},
+             "elastic_net": dict(mu=mu, l2=0.1 * mu), "nnls": {}}
+    fits = {}
+    registry.gram_stats = timed_stats
+    zero_counts(gram_ops.gram_and_rhs)
+    for problem, method in GRAM_KEYS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fit(problem, D, b, method=method, iters=LASSO_ITERS,
+                **extra[problem])
+        torch.cuda.synchronize()
+        fits[problem, method] = (r, time.perf_counter() - t0)
+    launches = gram_ops.gram_and_rhs.launches
+    registry.gram_stats = real_stats
+    check(launches == len(GRAM_KEYS),
+          f"lasso path: K2b launched {launches} times = {len(GRAM_KEYS)} "
+          "gram-path fits")
+    rt["launches"]["K2b_gram_and_rhs_lasso"] = launches
+    for (problem, method), ms in zip(GRAM_KEYS, k2b_ms):
+        r, secs = fits[problem, method]
+        print(f"fit {problem}/{method}: {r.iters} iters, {secs:.3f} s = "
+              f"K2b {ms:.2f} ms + FASTA/solve {secs - ms / 1e3:.3f} s",
+              flush=True)
+
+    # the float64 (G, c) of the same D, and K2b's own against it
+    G64, c64 = f64_stats(torch, D2, b2)
+    bb = float(torch.sum(b2.double() ** 2))
+    G1, c1 = gram_ops.gram_and_rhs(D2, b2)
+    dg = torch.sqrt(torch.diagonal(G64))
+    e_g = gram_err(torch, G1, G64)
+    e_c = float(((c1.double() - c64).abs() / (dg * math.sqrt(bb))).max())
+    check(e_g <= 1e-5 and e_c <= 1e-5,
+          f"K2b (G, c) at {m}x{n} vs f64: G err {e_g:.2e}, c err {e_c:.2e} "
+          "<= 1e-5")
+    del G1, c1
+
+    # each solution against the same solve in float64 on (G64, c64)
+    x_l = fits["lasso", "transpose"][0].x
+    check(torch.equal(x_l, fits["lasso", "fasta"][0].x),
+          "lasso: the fasta alias gives the transpose x bit for bit")
+    ref = transpose_reduction_lasso(G64, c64, mu, iters=LASSO_ITERS)
+    dx = (x_l.double() - ref.x).abs()
+    e = float((dx - 1e-3 * ref.x.abs()).max())
+    corr = G64 @ x_l.double() - c64
+    viol = max(float(corr.abs().max()) - mu, 0.0)
+    sup = x_l.abs() > 1e-7
+    sup_err = float((corr[sup] + mu * torch.sign(x_l.double()[sup]))
+                    .abs().max())
+    check(e <= 1e-5, f"lasso x vs f64 FASTA: max |dx| "
+          f"{float(dx.max()):.2e}, max(|dx| - 1e-3 |x|) {e:.2e} <= 1e-5 "
+          f"(support {int(sup.sum())}, f64 "
+          f"{int((ref.x.abs() > 1e-7).sum())})")
+    check(viol <= 1e-3 * mu, f"lasso KKT violation {viol:.3e} <= 1e-3 mu "
+          f"({1e-3 * mu:.3e}); support err {sup_err:.3e}")
+    x_r = fits["ridge", "transpose"][0].x.double()
+    want = torch.linalg.solve(G64 + torch.eye(n, dtype=torch.float64,
+                                              device=G64.device), c64)
+    e = float(torch.linalg.norm(x_r - want) / torch.linalg.norm(want))
+    check(e <= 1e-4, f"ridge x vs f64 closed form: rel {e:.2e} <= 1e-4")
+    x_e = fits["elastic_net", "transpose"][0].x
+    ref_e = transpose_reduction_lasso(G64, c64, mu, iters=LASSO_ITERS,
+                                      l2=0.1 * mu)
+    e = float(((x_e.double() - ref_e.x).abs()
+               - 1e-3 * ref_e.x.abs()).max())
+    check(e <= 1e-5, f"elastic_net x vs f64 FASTA: max(|dx| - 1e-3 |x|) "
+          f"{e:.2e} <= 1e-5")
+    x_n = fits["nnls", "transpose"][0].x.double()
+    g = G64 @ x_n - c64
+    pg = torch.where(x_n > 0, g, torch.clamp(g, max=0.0))
+    v = float(pg.abs().max())
+    check(bool((x_n >= 0).all()) and v <= 1e-3 * float(c64.abs().max()),
+          f"nnls x >= 0, f64 projected gradient {v:.3e} <= 1e-3 max |c| "
+          f"({1e-3 * float(c64.abs().max()):.3e})")
+
+    # the paper's comparison: time to model, transpose against consensus
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = fit("lasso", D, b, mu=mu, method="consensus",
+             iters=CONSENSUS_ITERS)
+    torch.cuda.synchronize()
+    cons_s = time.perf_counter() - t0
+    o_t = lasso_obj(torch, G64, c64, bb, x_l, mu)
+    o_c = lasso_obj(torch, G64, c64, bb, rc.x, mu)
+    check(math.isfinite(o_c) and bool(torch.isfinite(
+        rc.objective_history).all()), "consensus lasso objective finite")
+    r_t, trans_s = fits["lasso", "transpose"]
+    print(f"time to model: transpose {trans_s:.3f} s ({r_t.iters} FASTA "
+          f"iters, K2b {k2b_ms[0]:.2f} ms), "
+          f"consensus {cons_s:.3f} s ({CONSENSUS_ITERS} iters, Boyd's "
+          f"rule first held at {rc.iters}); objective gap (consensus - "
+          f"transpose) / "
+          f"transpose {(o_c - o_t) / o_t:.3e}", flush=True)
+    # the same work warm (the first fit paid the libraries' one-time set
+    # up), and the consensus run cut to the iteration where Boyd's rule
+    # first held: time to model by each method's own stopping rule
+    r_w, warm_s = fits["lasso", "fasta"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc2 = fit("lasso", D, b, mu=mu, method="consensus", iters=rc.iters)
+    torch.cuda.synchronize()
+    cons_stop_s = time.perf_counter() - t0
+    print(f"time to model, warm: transpose {warm_s:.3f} s (K2b "
+          f"{k2b_ms[1]:.2f} ms + FASTA {warm_s - k2b_ms[1] / 1e3:.3f} s, "
+          f"{r_w.iters} iters); consensus to Boyd's rule {cons_stop_s:.3f} "
+          f"s ({rc2.iters} iters), {CONSENSUS_ITERS} iters "
+          f"{cons_s:.3f} s; consensus / transpose "
+          f"{cons_stop_s / warm_s:.1f}x", flush=True)
+    rt["lasso"] = (D2, b2)
+    del fits, rc, rc2, ref, ref_e, G64, c64
+
+    phase_registry_small(torch)
+    phase_lasso_timing(torch, rt, reps)
+    del rt["lasso"], D, b, D2, b2, prob
+    print(f"lasso: freed, {free_device_memory(torch):.2f} GB still "
+          "allocated", flush=True)
+
+
+def phase_registry_small(torch):
+    """Every registry key and every executor problem at the JAX tests'
+    size on the card, against the same call on the CPU (plain versions):
+    x rel 2e-4 and objective history rel 1e-4 (tests/test_engine.py:110).
+    The consensus SVM's greedy CD order follows
+    rounding (ROADMAP section 3): its final objective is held to 2e-2 of
+    the CPU's, the JAX suite's optimality bound for it."""
+    from repro_torch.core.fit import fit
+    from repro_torch.data.synthetic import (classification_problem,
+                                            lasso_problem)
+    from repro_torch.exec import problems as exprob
+    from repro_torch.service import registry
+
+    lp = lasso_problem(SEED, SMALL["N"], SMALL["m_per_node"], SMALL["n"],
+                       device="cpu")
+    cp = classification_problem(SEED, SMALL["N"], SMALL["m_per_node"],
+                                SMALL["n"], device="cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    cls = torch.randint(0, 3, (SMALL["N"], SMALL["m_per_node"]),
+                        generator=gen).float()
+    mu = float(lp.mu)
+
+    def args(problem):
+        if problem in ("lasso", "ridge", "elastic_net", "nnls", "huber",
+                       "quantile", "group_lasso"):
+            D, a = lp.D, lp.b
+        elif problem == "multinomial":
+            D, a = cp.D, cls
+        else:
+            D, a = cp.D, cp.labels
+        kw = dict(iters=SMALL_ITERS)
+        if problem in ("lasso", "elastic_net", "group_lasso"):
+            kw["mu"] = mu
+        if problem == "sparse_logistic":
+            kw["mu"] = 2.0
+        if problem == "elastic_net":
+            kw["l2"] = 0.1 * mu
+        return D, a, kw
+
+    def rel(u, v):
+        u, v = u.double().cpu(), v.double().cpu()
+        return float(torch.linalg.norm(u - v)
+                     / max(float(torch.linalg.norm(v)), 1e-30))
+
+    def hold(label, rg, rc, hg, hc, kind):
+        """kind: "run" (x after a fixed number of steps), "solve" (stops
+        by Boyd's rule: the histories up to the earlier stop), "fasta"
+        (the history of g + J, which passes through 0, relative to its
+        largest value). The stop points are printed, not held: where the
+        residuals reach the f32 noise floor they follow rounding."""
+        ig, ic = int(rg.iters), int(rc.iters)
+        ok = bool(torch.isfinite(rg.x).all()) and rg.x.device.type == \
+            "cuda" and tuple(rg.x.shape) == tuple(rc.x.shape)
+        ex = rel(rg.x, rc.x)
+        ok &= ex <= 2e-4
+        eh = 0.0
+        if hc is not None:
+            hg, hc = hg.double().cpu(), hc.double().cpu()
+            k = min(ig, ic) if kind == "solve" else len(hc)
+            ok &= kind == "solve" or len(hg) == len(hc)
+            den = hc.abs().max() if kind == "fasta" else hc[:k].abs()
+            eh = float(((hg[:k] - hc[:k]).abs() / den).max())
+            ok &= eh <= 1e-4
+        check(ok, f"{label}: card vs CPU iters {ig}/{ic}, x rel {ex:.2e}, "
+              f"history rel {eh:.2e}")
+
+    t0 = time.perf_counter()
+    for problem, method in sorted(registry._REGISTRY):
+        D, a, kw = args(problem)
+        if (problem, method) == ("svm", "consensus"):
+            kw["iters"] = 40
+        t1 = time.perf_counter()
+        rg = fit(problem, D, a, method=method, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rc = fit(problem, D, a, method=method, device="cpu", **kw)
+        label = f"registry {problem}/{method} ({t2 - t1:.2f} s on the card)"
+        if (problem, method) == ("svm", "consensus"):
+            og = float(rg.objective_history[-1])
+            oc = float(rc.objective_history[-1])
+            check(math.isfinite(og) and abs(og - oc) <= 2e-2 * abs(oc),
+                  f"{label}: final objective {og:.6g} vs CPU {oc:.6g} "
+                  f"(rel {abs(og - oc) / abs(oc):.2e} <= 2e-2; z rel "
+                  f"{rel(rg.x, rc.x):.2e})")
+            continue
+        kind = "solve" if problem in ("group_lasso", "multinomial") else \
+            "fasta" if problem in ("lasso", "elastic_net", "nnls") and \
+            method != "consensus" else "run"
+        hold(label, rg, rc, rg.objective_history, rc.objective_history,
+             kind)
+    for name in ("logistic", "svm", "least_squares", "quantile",
+                 "group_lasso", "multinomial"):
+        p = exprob.make_problem(name)
+        D, a = exprob.synth_data(p, m=SMALL["N"] * SMALL["m_per_node"],
+                                 n=SMALL["n"], seed=SEED)
+        rg = exprob.fit_on_executor(p, "local", D, a, max_iters=300,
+                                    record=True)
+        rc = exprob.fit_on_executor(p, "local", D, a, max_iters=300,
+                                    record=True, device="cpu")
+        hold(f"executor {name}/local", rg, rc, rg.history.objective,
+             rc.history.objective, "solve")
+    print(f"registry and executor problems: card and CPU in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def phase_lasso_timing(torch, rt, reps: int):
+    """K2b at the lasso's shape (r = 1) against its plain version and one
+    product D^T [D | b] (which holds [G | c]); no target."""
+    from repro_torch.kernels.gram import ops as gram_ops
+
+    D2, b2 = rt["lasso"]
+    m, n = D2.shape
+    timer = Timer(torch, reps)
+    (G1, C1), (G2, C2) = gram_ops.gram_and_rhs(D2, b2), \
+        gram_ops.gram_and_rhs_plain(D2, b2)
+    err = max(float((G1 - G2).abs().max()), float((C1 - C2).abs().max()))
+    e = max(gram_err(torch, G1, G2), rel_err(torch, C1, C2))
+    check(e <= 1e-4, f"K2b at {m}x{n}: err {e:.2e} <= 1e-4 of its plain "
+          "version")
+    del G1, C1, G2, C2
+    k_ms = timer(lambda: gram_ops.gram_and_rhs(D2, b2))
+    p_ms = timer(lambda: gram_ops.gram_and_rhs_plain(D2, b2))
+    DB = torch.cat([D2, b2[:, None]], 1)
+    lib_ms = timer(lambda: D2.T @ DB)
+    del DB
+    free_device_memory(torch)
+    record(rt, "K2b_gram_and_rhs_lasso", err, k_ms, p_ms,
+           bound(rt, m * n * 4 + m * 4 + n * n * 4 + n * 4,
+                 m * n * n + 2 * m * n), lib_ms)
+    print(f"K2b at the lasso shape: {k_ms:.3f} ms, "
+          f"{m * n * n / k_ms / 1e9:.1f} TFLOP/s of m n^2; "
+          f"D.T @ [D | b] {lib_ms:.3f} ms", flush=True)
 
 
 # K4's tensor-core kernel against the plain version with P rounded to bf16
@@ -1318,6 +1654,7 @@ def main(argv=None):
     del rt["main"]
     print(f"admm: freed, {free_device_memory(torch):.2f} GB still "
           "allocated", flush=True)
+    phase_problems(torch, rt, REPS)
     for arch, spec in LM.items():
         sh = spec["shapes"]["smoke" if args.lm_smoke else "full"]
         phase_lm(torch, rt, arch, sh, args.lm_smoke)

@@ -1,5 +1,17 @@
 """The paper's contribution: unwrapped ADMM with transpose reduction
-(PyTorch port of ``repro.core``; the dense single-device solve)."""
+(PyTorch port of ``repro.core``): the dense single-device solve, FASTA on
+the cached Gram, the consensus baseline and ``fit()``."""
+from repro_torch.core.consensus import (
+    ConsensusLasso,
+    ConsensusLogistic,
+    ConsensusSVM,
+)
+from repro_torch.core.fasta import (
+    Fasta,
+    lasso_mu_max,
+    transpose_reduction_lasso,
+)
+from repro_torch.core.fit import FitResult, fit
 from repro_torch.core.gram import (
     gram_and_rhs_chunked,
     gram_chunked,
@@ -9,19 +21,28 @@ from repro_torch.core.gram import (
 )
 from repro_torch.core.prox import (
     ProxLoss,
+    StackedProx,
     loss_from_spec,
     make_hinge,
+    make_huber,
     make_l1,
     make_least_squares,
+    make_linf_ball,
     make_logistic,
+    make_multinomial,
     make_quantile,
+    make_shifted_least_squares,
     soft_threshold,
 )
 from repro_torch.core.unwrapped import ADMMResult, UnwrappedADMM
 
 __all__ = [
-    "ADMMResult", "ProxLoss", "UnwrappedADMM", "gram_and_rhs_chunked",
-    "gram_chunked", "gram_factor", "gram_rhs", "gram_solve",
-    "loss_from_spec", "make_hinge", "make_l1", "make_least_squares",
-    "make_logistic", "make_quantile", "soft_threshold",
+    "ADMMResult", "ConsensusLasso", "ConsensusLogistic", "ConsensusSVM",
+    "Fasta", "FitResult", "ProxLoss", "StackedProx", "UnwrappedADMM", "fit",
+    "gram_and_rhs_chunked", "gram_chunked", "gram_factor", "gram_rhs",
+    "gram_solve", "lasso_mu_max", "loss_from_spec", "make_hinge",
+    "make_huber", "make_l1",
+    "make_least_squares", "make_linf_ball", "make_logistic",
+    "make_multinomial", "make_quantile", "make_shifted_least_squares",
+    "soft_threshold", "transpose_reduction_lasso",
 ]

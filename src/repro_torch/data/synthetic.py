@@ -1,6 +1,6 @@
 """Synthetic GLM data generators — paper sections 10.1 and 10.2; port of
-``classification_problem`` and ``star_catalog_problem`` from
-``repro/data/synthetic.py``.
+``repro/data/synthetic.py`` (``lasso_problem``, ``classification_problem``
+and ``star_catalog_problem``).
 
 Both emit the node-stacked layout (N, m_i, n) used by the solvers, drawn
 from an explicit ``torch.Generator`` on the chosen device, and fill D in
@@ -19,6 +19,13 @@ from repro_torch.device import resolve_device
 BLOCK_ROWS = 1 << 18
 
 
+class LassoProblem(NamedTuple):
+    D: torch.Tensor          # (N, m_i, n)
+    b: torch.Tensor          # (N, m_i)
+    x_true: torch.Tensor     # (n,)
+    mu: torch.Tensor         # scalar: the paper's 10% rule
+
+
 class ClassifProblem(NamedTuple):
     D: torch.Tensor          # (N, m_i, n)
     labels: torch.Tensor     # (N, m_i) in {-1, +1}
@@ -33,6 +40,50 @@ def _generators(seed: int, device: torch.device):
     small = torch.Generator()
     small.manual_seed(int(seed) + 1)
     return bulk, small
+
+
+def _hetero_shift(gen: torch.Generator, N: int, scale: float
+                  ) -> torch.Tensor:
+    """Paper: 'one random Gaussian scalar for each node, added to D_i';
+    (N, 1, 1), from the CPU generator."""
+    return scale * torch.randn((N, 1, 1), generator=gen)
+
+
+def lasso_problem(seed: int, N: int, m_per_node: int, n: int,
+                  active: int = 10, heterogeneity: float = 0.0,
+                  noise_sigma: float = 1.0, dtype=torch.float32,
+                  device="cuda") -> LassoProblem:
+    """Boyd-style lasso test problem (paper section 10.1 'Lasso problems').
+
+    D random Gaussian (plus one Gaussian shift per node when
+    ``heterogeneity`` is set); x_true has ``active`` entries of +-1;
+    b = D x_true + sigma eta; mu = 10% of mu_max = ||D^T b||_inf, with
+    D^T b accumulated in f32 as the reference does."""
+    dev = resolve_device(device)
+    gen, small = _generators(seed, dev)
+    shift = _hetero_shift(small, N, heterogeneity) if heterogeneity \
+        else None
+    idx = torch.randperm(n, generator=small)[:active]
+    signs = torch.sign(torch.randn(idx.numel(), generator=small))
+    x_true = torch.zeros(n, dtype=dtype)
+    x_true[idx] = signs.to(dtype)
+    x_true = x_true.to(dev)
+    D = torch.empty((N, m_per_node, n), dtype=dtype, device=dev)
+    b = torch.empty((N, m_per_node), dtype=dtype, device=dev)
+    dtb = torch.zeros(n, dtype=torch.float32, device=dev)
+    for i in range(N):
+        for s in range(0, m_per_node, BLOCK_ROWS):
+            e = min(m_per_node, s + BLOCK_ROWS)
+            blk = torch.randn((e - s, n), generator=gen, dtype=dtype,
+                              device=dev)
+            if shift is not None:
+                blk += float(shift[i])
+            D[i, s:e] = blk
+            b[i, s:e] = blk @ x_true + noise_sigma * torch.randn(
+                e - s, generator=gen, dtype=dtype, device=dev)
+            dtb += blk.float().T @ b[i, s:e].float()
+    mu = 0.1 * torch.max(torch.abs(dtb))
+    return LassoProblem(D, b, x_true, mu)
 
 
 def _balanced_labels(N, m_per_node, dtype, device, gen):

@@ -6,6 +6,7 @@ to the CPU.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,11 @@ def resolve_device(device) -> torch.device:
             "available (torch.cuda.is_available() is False); pass "
             "device='cpu' to run on the CPU")
     return dev
+
+
+def on_device(a, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on ``device`` (numpy arrays are
+    taken as writable C-ordered copies only where they are not already)."""
+    if isinstance(a, np.ndarray):
+        a = torch.from_numpy(np.require(a, requirements=["C", "W"]))
+    return a.to(device)

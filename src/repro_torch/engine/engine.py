@@ -242,6 +242,11 @@ class IterationEngine:
         y_new = self.loss.prox(Dx + lam, self.delta, aux)
         lam_new = lam + Dx - y_new
         if want_dual:
+            if y_new.dim() > 1:
+                # matrix iterates (m, K): three multi-RHS products
+                DfT = Df.T
+                return EngineStep(y_new, lam_new, DfT @ (y_new - lam_new),
+                                  DfT @ (y_new - y), DfT @ lam_new)
             dwv = Df.T @ torch.stack([y_new - lam_new, y_new - y, lam_new],
                                      dim=1)
             return EngineStep(y_new, lam_new, dwv[:, 0], dwv[:, 1],

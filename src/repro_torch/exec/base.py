@@ -78,6 +78,26 @@ def make_l1_reg(mu: float, inner_iters: int = 25) -> Regularizer:
                        inner_iters)
 
 
+def make_group_lasso_reg(mu: float, groups, num_groups: int,
+                         inner_iters: int = 40) -> Regularizer:
+    """Group-lasso penalty mu * sum_g ||x_g||_2 over the coordinate
+    partition ``groups`` (ints mapping coordinate -> group id). Group sums
+    are a product with the one-hot (n x G) matrix: a fixed order, where
+    the reference's ``segment_sum`` would become float atomics."""
+    from repro_torch.core.prox import group_onehot, group_soft_threshold
+    g = torch.as_tensor(groups).long()
+
+    def value(x):
+        sq = (x * x) @ group_onehot(g, num_groups, x.dtype, x.device)
+        return mu * torch.sum(torch.sqrt(sq))
+
+    return Regularizer(
+        "group_lasso", value,
+        lambda z, step: group_soft_threshold(z, step * mu, g.to(z.device),
+                                             num_groups),
+        inner_iters)
+
+
 # ---------------------------------------------------------------------------
 # the executor contract
 # ---------------------------------------------------------------------------
@@ -92,6 +112,7 @@ class SolveExecutor(abc.ABC):
 
     m: int
     n: int
+    ycols: int = 1                   # columns of y / x (multinomial: K)
     acc = torch.float32              # accumulation dtype of x/d
     device = torch.device("cpu")     # where x and d live
 
@@ -109,7 +130,8 @@ class SolveExecutor(abc.ABC):
         """One fused pass over all rows for iteration ``k`` (1-based)."""
 
     def zero_x(self) -> Tensor:
-        return torch.zeros((self.n,), dtype=self.acc, device=self.device)
+        shape = (self.n,) if self.ycols == 1 else (self.n, self.ycols)
+        return torch.zeros(shape, dtype=self.acc, device=self.device)
 
     @abc.abstractmethod
     def final_iterates(self) -> Tuple[Tensor, Tensor]:
@@ -145,7 +167,8 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
     if obs is not None:
         raise NotImplementedError(
             "observability (repro.obs) is not ported yet (ROADMAP item 10)")
-    m, n = ex.m, ex.n
+    m, n, K = ex.m, ex.n, ex.ycols
+    m_eff, n_eff = m * K, n * K
 
     G = ex.setup()
     if reg is None:
@@ -178,8 +201,9 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
         vals = torch.stack([p.to(torch.float64) for p in parts]).tolist()
         r = vals[0]
         s = tau * vals[1]
-        eps_pri = math.sqrt(m) * eps_abs + eps_rel * max(vals[2], vals[3])
-        eps_dual = math.sqrt(n) * eps_abs + eps_rel * tau * vals[4]
+        eps_pri = math.sqrt(m_eff) * eps_abs + eps_rel * max(vals[2],
+                                                             vals[3])
+        eps_dual = math.sqrt(n_eff) * eps_abs + eps_rel * tau * vals[4]
         k += 1
         if record:
             obj = vals[5]

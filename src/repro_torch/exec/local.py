@@ -28,12 +28,16 @@ class LocalExecutor(SolveExecutor):
         self._Dflat = D.reshape(self.m, n)
         self.acc = gram_lib._acc_dtype(D.dtype)
         self.device = D.device
+        self.ycols = getattr(engine.loss, "ycols", 1)
         self.backend = engine.resolve(D.dtype)
         self._aux = aux.reshape(self.m) if aux is not None else None
         self._gbr = gram_block_rows
         self._Dres = None
         self._y = None
         self._lam = None
+
+    def _yshape(self):
+        return (self.m,) if self.ycols == 1 else (self.m, self.ycols)
 
     def setup(self) -> Tensor:
         G, _ = self.engine.gram(self._Dflat, block_rows=self._gbr)
@@ -42,7 +46,7 @@ class LocalExecutor(SolveExecutor):
 
     def init(self, x0: Optional[Tensor]) -> Tensor:
         if x0 is None:
-            self._y = torch.zeros((self.m,), dtype=self.acc,
+            self._y = torch.zeros(self._yshape(), dtype=self.acc,
                                   device=self.device)
             self._lam = torch.zeros_like(self._y)
             return self.zero_x()
@@ -60,7 +64,8 @@ class LocalExecutor(SolveExecutor):
 
     def final_iterates(self):
         N, mi = self._stack
-        return self._y.reshape(N, mi), self._lam.reshape(N, mi)
+        shape = (N, mi) + tuple(self._y.shape[1:])
+        return self._y.reshape(shape), self._lam.reshape(shape)
 
 
 def fused_step(engine, D, aux, y, lam, x):

@@ -41,6 +41,9 @@ def _env():
 def test_port_imports_no_jax_and_no_repro():
     mods = _modules()
     assert "repro_torch.engine.engine" in mods and len(mods) >= 20
+    for name in ("core.oracles", "core.fasta", "core.consensus", "core.fit",
+                 "exec.problems", "service", "service.registry"):
+        assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for name in {mods!r} + ['chip_smoke']:\n"
@@ -102,7 +105,7 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
 def test_kernel_path_catches_nothing():
     """No try/except on the path from the engine to the kernels: a build
     or launch error propagates, nothing falls back to the plain version."""
-    for sub in ("kernels", "engine", "exec", "core", "models"):
+    for sub in ("kernels", "engine", "exec", "core", "models", "service"):
         for f in (PKG / sub).rglob("*.py"):
             for line in f.read_text().splitlines():
                 s = line.strip()

@@ -287,7 +287,7 @@ def test_fit_cli_cpu(capsys):
     (["--density", "0.1"], "ROADMAP item 6"),
     (["--executor", "cluster"], "ROADMAP item 9"),
     (["--obs-dir", "obs"], "ROADMAP item 10"),
-    (["--problem", "lasso"], "ROADMAP item 4"),
+    (["--executor", "shard_map"], "ROADMAP item 8"),
     (["--resume"], "ROADMAP item 7"),
 ])
 def test_fit_cli_names_roadmap_item_for_unported_flags(argv, item):
