@@ -22,8 +22,13 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               from the counters, the tensor-core cases also against the plain
               version with P rounded to bf16, K5's head dims,
               chunks, layouts, final state and hard decay, and two
-              identical calls compared bit for bit; then a small solve,
-              cuda backend against reference backend.
+              identical calls compared bit for bit; K6 (the sparse
+              iteration) against its plain version over all five kinds,
+              f32 and bf16 values, want_dual on and off, a tail block,
+              zero-nnz rows and an all-zero block, duplicate column ids,
+              and u in shared memory and outside it, bit for bit across
+              two calls; then a small solve, cuda backend against
+              reference backend.
 4. main     — the main path at full size: the star-catalog logistic problem
               (m = 16,777,216 rows x n = 307 features, f32, 20.6 GB on the
               card) solved by ``UnwrappedADMM.solve`` on the cuda backend,
@@ -53,10 +58,27 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               and every executor problem at N 4 x m_i 250 x n 20 on the
               card against the same call on the CPU, and K2b timed at the
               lasso's shape against its plain version and D.T @ [D | b].
-   The lasso data are freed, and the LM slices run, qwen3-8b then
+   The lasso data are freed.
+7. sparse   — the sparse data path (DESIGN.md section 10) at n = 512
+              features, density 1 %, m = 2^22 rows, f32 values (~0.9 GB
+              as a BlockCSR on the card; 8.6 GB dense): the logistic
+              problem solved by ``UnwrappedADMM.solve`` through K6 (its
+              count set to 0 just before and read just after: one launch
+              per iteration), again with bf16 residency, and the SVM row;
+              x held against the densify oracle (backend "reference") on
+              the card and against float64; K6 timed against its plain
+              version and its byte bound (f32 and bf16), with K3 on the
+              densified copy as a printed probe. Then the CLI
+              (``launch.fit.main --density 0.01``) for logistic and lasso
+              at 2^20 rows, and the column-split dual lasso (paper section
+              7.1) at m = 2,048 x n = 262,144 (32 nodes of 8,192 columns):
+              one K2a launch for the Gram of D_hat = [I; D^T], 3000
+              iterations, the certificates of tests/test_column_split.py,
+              and K2a timed at D_hat's shape against ``D_hat.T @ D_hat``.
+   The sparse data are freed, and the LM slices run, qwen3-8b then
    rwkv6-1.6b, each at full width and depth (f32 weights, random from the
    seed; each freed before the next):
-7. lm main  — ``forward`` through the slice's kernel (K4 for qwen3-8b at
+8. lm main  — ``forward`` through the slice's kernel (K4 for qwen3-8b at
               B 2 x S 4096, K5 for rwkv6-1.6b at B 8 x T 4096) and
               ``loss_fn``, with the kernel's count set to 0 just before and
               read just after (one launch per layer and forward; K4's
@@ -65,10 +87,10 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               decode steps against ``forward``'s logits; then the same at
               full width, 4 layers and f32 compute with tight bounds
               (K4: all on the FMA route).
-8. serve    — ``repro_torch.launch.serve.main`` at full size (batch 8,
+9. serve    — ``repro_torch.launch.serve.main`` at full size (batch 8,
               prompt 2048, 64 generated tokens): prefill seconds, decode
               ms/step and tok/s.
-9. timing   — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
+10. timing  — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
               bf16, causal) against its plain version and
               ``scaled_dot_product_attention``, and the FMA route on f32
               copies of the same inputs (printed); K5 at the rwkv lm shape
@@ -143,6 +165,13 @@ SOURCES = {
                            "src/repro/kernels/flash_attn/flash_attn.py:80"),
     "K5_wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                "src/repro/kernels/wkv/wkv.py:67"),
+    # not the port of a Pallas kernel: the reference's sparse iteration is
+    # a lax.scan of jnp gathers
+    "K6_sparse_admm_iter": ("src/repro_torch/kernels/csrc/spgram.cu",
+                            "src/repro/kernels/spgram/spgram.py:96"),
+    # K2a on the column split's path, at D_hat's shape
+    "K2a_gram_column_split": ("src/repro_torch/kernels/csrc/gram.cu",
+                              "src/repro/kernels/gram/gram.py:149"),
 }
 
 
@@ -1062,6 +1091,400 @@ def phase_lasso_timing(torch, rt, reps: int):
           f"D.T @ [D | b] {lib_ms:.3f} ms", flush=True)
 
 
+# The sparse data path (DESIGN.md section 10) at benchmarks/sparse_bench.py's
+# width and density: n = 512 features at 1 %, cut to m = 2^22 rows (the
+# host build of the layout, ~30 s, is what bounds m)
+SPARSE = dict(m=1 << 22, n=512, density=0.01)
+SPARSE_CLI = dict(nodes=16, rows_per_node=65536, iters=100)   # 2^20 rows
+# The column-split dual lasso (paper section 7.1):
+# tests/test_column_split.py's wide problem at m = 2,048 rows x 32 nodes of
+# 8,192 columns
+COLUMN_SPLIT = dict(m=2048, nodes=32, cols_per_node=8192, iters=3000)
+# K6's d/w/v against its plain version, on random iterates (at a solution
+# u = y' - y is rounding noise, which the two prox chains round
+# differently), relative to sum |D| |u|, the sum of the absolute terms,
+# element by element: 2e-5 at the small shapes; at the full shape the
+# plain version adds 810 block partials in f32 without compensation, up to
+# nb 2^-24 ~ 5e-5 of that sum, so 1e-4 there
+K6_DWV_SMALL, K6_DWV_FULL = 2e-5, 1e-4
+
+
+def k6_errs(torch, sp_ops, D, y, out, plain):
+    """(y/lam error relative to max(1, max |plain|), d/w/v error relative
+    to sum |D| |u| element by element) of a K6 call against its plain
+    version."""
+    e_yl = max(rel_err(torch, u, v) for u, v in zip(out[:2], plain[:2]))
+    absD = dataclasses.replace(D, values=D.values.abs(),
+                               col_values=D.col_values.abs())
+    us = [plain[0] - plain[1], plain[0] - y, plain[1]]
+    e_dwv = 0.0
+    for u, v, w in zip(out[2:], plain[2:], us):
+        if v is None:
+            continue
+        terms = sp_ops.rmatvec(absD, w.abs()).double()
+        e_dwv = max(e_dwv, float(((u.double() - v.double()).abs()
+                                  / terms.clamp(min=1e-30)).max()))
+    return e_yl, e_dwv
+
+
+def phase_sparse_kernels(torch):
+    """K6 against its plain version at small shapes: all five kinds, f32
+    and bf16 values, want_dual on and off; a tail block, zero-nnz rows
+    (rows 1024-3071: an all-zero block where block_m = 1024), duplicate
+    column ids, block_m 1024 (u in shared memory), 40,000 (u outside it)
+    and the autotuned height at n = 512; two identical calls bit for
+    bit."""
+    import numpy as np
+    from repro_torch.data.sparse import BlockCSR, _random_coo
+    from repro_torch.kernels.spgram import ops as sp_ops
+
+    dev = torch.device("cuda")
+    k6 = sp_ops.sparse_admm_iter_full
+    rng = np.random.default_rng(SEED)
+    for m, n, block_m, density in ((5000, 64, 1024, 0.05),
+                                   (70001, 130, 40000, 0.02),
+                                   (30001, 512, None, 0.01)):
+        rows, cols = _random_coo(rng, m, n, density)
+        keep = (rows < 1024) | (rows >= 3072)
+        rows, cols = rows[keep], cols[keep]
+        rows = np.concatenate([rows, rows[:64]])     # duplicate entries
+        cols = np.concatenate([cols, cols[:64]])
+        vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+        D = BlockCSR.from_coo(rows, cols, vals, m, n, block_m=block_m,
+                              device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        y, lam = (torch.randn(m, generator=g, device=dev) for _ in range(2))
+        x = 0.1 * torch.randn(n, generator=g, device=dev)
+        aux = torch.sign(torch.randn(m, generator=g, device=dev))
+        for dt in (torch.float32, torch.bfloat16):
+            Dd = D.astype(dt)
+            for kind in KINDS:
+                a = None if kind == "l1" else aux
+                p = 0.3 if kind == "quantile" else 0.0
+                for dual in (True, False):
+                    kw = dict(kind=kind, delta=2.0, param=p, want_dual=dual)
+                    before = k6.launches
+                    o1 = k6(Dd, a, y, lam, x, **kw)
+                    o2 = k6(Dd, a, y, lam, x, **kw)
+                    op = sp_ops.sparse_admm_iter_plain(Dd, a, y, lam, x,
+                                                       **kw)
+                    e_yl, e_dwv = k6_errs(torch, sp_ops, Dd, y, o1, op)
+                    same = all(u is v or torch.equal(u, v)
+                               for u, v in zip(o1, o2))
+                    where = "shared" if sp_ops.u_in_shared(Dd, dual) \
+                        else "L2"
+                    check(e_yl <= 2e-5 and e_dwv <= K6_DWV_SMALL and same
+                          and k6.launches - before == 2
+                          and (o1[3] is None) == (not dual),
+                          f"K6 sparse_admm_iter {kind:13s} m={m} n={n} "
+                          f"bm={Dd.block_m} kp={Dd.kp} kc={Dd.kc} "
+                          f"{str(dt)[6:]} dual={int(dual)} u in {where}"
+                          f": y/lam err {e_yl:.2e} <= 2e-5, d/w/v err "
+                          f"{e_dwv:.2e} <= {K6_DWV_SMALL:g} of sum |terms|, "
+                          "bitwise repeat")
+
+
+def phase_sparse(torch, rt, reps: int, sp=SPARSE, cli=SPARSE_CLI,
+                 cs=COLUMN_SPLIT):
+    """The sparse data path at full size through K6, the CLI's --density,
+    and the column-split dual lasso through K2a (module docstring, phase
+    7)."""
+    from repro_torch.core.prox import make_hinge, make_logistic
+    from repro_torch.core.unwrapped import UnwrappedADMM
+    from repro_torch.data.sparse import sparse_classification_problem
+    from repro_torch.kernels.admm_iter import ops as iter_ops
+    from repro_torch.kernels.spgram import ops as sp_ops
+
+    t0 = time.perf_counter()
+    prob = sparse_classification_problem(SEED, sp["m"], sp["n"],
+                                         sp["density"])
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    D, lab = prob.D, prob.labels
+    m, n = D.shape
+    print(f"sparse: {D}; {D.nbytes / 1e9:.3f} GB on the card (dense "
+          f"{m * n * 4 / 1e9:.1f} GB); data {data_s:.1f} s", flush=True)
+    check(D.nnz > 0 and bool(torch.isfinite(D.values).all()),
+          "sparse data: nonzeros, finite values")
+
+    logistic = dict(loss=make_logistic(), tau=0.1)
+    svm = dict(loss=make_hinge(1.0), tau=0.5, rho=1.0)
+    k6 = sp_ops.sparse_admm_iter_full
+    # each solve's Gram (a host pass) timed where the engine calls it
+    real_gram_rhs, gram_s = sp_ops.sparse_gram_rhs, []
+
+    def timed_gram_rhs(*a, **k):
+        t = time.perf_counter()
+        out = real_gram_rhs(*a, **k)
+        torch.cuda.synchronize()
+        gram_s.append(time.perf_counter() - t)
+        return out
+
+    sp_ops.sparse_gram_rhs = timed_gram_rhs
+    zero_counts(k6)
+    runs = {}
+    for label, kw, extra in (("f32", logistic, {}),
+                             ("bf16", logistic, {"residency": "bf16"}),
+                             ("svm", svm, {})):
+        solver = UnwrappedADMM(**kw, **extra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.solve(D, lab, max_iters=ITERS)
+        torch.cuda.synchronize()
+        runs[label] = (res, time.perf_counter() - t0, gram_s[-1])
+    launches = k6.launches
+    sp_ops.sparse_gram_rhs = real_gram_rhs
+    total = sum(r[0].iters for r in runs.values())
+    check(launches == total, f"sparse path: K6 launched {launches} times "
+          f"= {total} iterations")
+    rt["launches"]["K6_sparse_admm_iter"] = launches
+    base = m * math.log(2.0)           # the logistic objective at x = 0
+    for label, (res, secs, g_s) in runs.items():
+        check(bool(torch.isfinite(res.x).all()) and res.x.shape == (n,)
+              and res.y.shape == (1, m),
+              f"sparse {label}: x finite, shape ({n},), y (1, {m})")
+        z = sp_ops.matvec(D, res.x).double()
+        a = lab.double()
+        acc = float(torch.mean((torch.sign(z) == a).double()))
+        if label == "svm":
+            obj = float(torch.sum(torch.clamp(1 - a * z, min=0))
+                        + 0.5 * torch.dot(res.x.double(), res.x.double()))
+        else:
+            obj = float(torch.sum(torch.nn.functional.softplus(-a * z)))
+        per_iter = (secs - g_s) * 1e3 / max(res.iters, 1)
+        print(f"sparse {label}: {res.iters} iters, objective {obj:.6g}, "
+              f"train acc {acc:.4f}, gram {g_s:.2f} s (host), "
+              f"{per_iter:.2f} ms/iter, solve {secs:.2f} s", flush=True)
+        if label != "svm":
+            check(obj < base, f"sparse {label}: objective {obj:.6g} < "
+                  f"{base:.6g} (x = 0)")
+
+    # x against the densify oracle (backend "reference": D densified on the
+    # card each pass) at equal iteration counts, and against the same
+    # oracle in float64 on a densified copy
+    res_c = runs["f32"][0]
+    ref_solver = UnwrappedADMM(**logistic, backend="reference")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_r = ref_solver.solve(D, lab, max_iters=res_c.iters)
+    torch.cuda.synchronize()
+    print(f"sparse oracle (reference backend, densified each pass): "
+          f"{res_r.iters} iters in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    # the stop points are printed, not held: where the residuals reach the
+    # f32 noise floor they follow rounding (phase 6's registry checks)
+    print(f"sparse stop iteration: K6 {res_c.iters}, oracle {res_r.iters} "
+          f"(run to at most K6's)", flush=True)
+    k = res_r.iters
+    if k != res_c.iters:
+        res_c = UnwrappedADMM(**logistic).solve(D, lab, max_iters=k)
+    res_b = runs["bf16"][0]
+    if res_b.iters != k:
+        res_b = UnwrappedADMM(**logistic, residency="bf16").solve(
+            D, lab, max_iters=k)
+    D64 = D.to_dense().double()
+    res_64 = UnwrappedADMM(**logistic, backend="reference").solve(
+        D64[None], lab.double()[None], max_iters=k)
+    del D64
+    free_device_memory(torch)
+
+    def rel(u, v):
+        return float(torch.linalg.norm(u.double() - v.double())
+                     / torch.linalg.norm(v.double()))
+
+    x64 = res_64.x
+    e_c, e_r, e_b = rel(res_c.x, x64), rel(res_r.x, x64), rel(res_b.x, x64)
+    e_cr = rel(res_c.x, res_r.x)
+    print(f"sparse x after {k} iters: f64 oracle stopped at "
+          f"{res_64.iters}; f32 oracle vs f64 {e_r:.2e}", flush=True)
+    check(e_cr <= 1e-3, f"sparse K6 x vs the f32 densify oracle: rel "
+          f"{e_cr:.2e} <= 1e-3")
+    check(e_c <= 1e-4, f"sparse K6 x vs the f64 oracle: rel {e_c:.2e} "
+          "<= 1e-4")
+    check(e_b <= 5e-3, f"sparse bf16 residency x vs the f64 oracle: rel "
+          f"{e_b:.2e} <= 5e-3")
+
+    # K6 timed at this shape, f32 and bf16: the solution's x, random y and
+    # lam (see K6_DWV_FULL)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    y, lam = (torch.randn(m, generator=g, device="cuda") for _ in range(2))
+    x = res_c.x
+    delta = 1.0 / logistic["tau"]
+    del runs, res_r, res_b, res_64
+    timer = Timer(torch, reps)
+    nflops = 8 * D.nnz + m * PROX_FLOPS["logistic"]
+    times = {}
+    for label, DD in (("f32", D), ("bf16", D.astype(torch.bfloat16))):
+        k6_fn = lambda: k6(DD, lab, y, lam, x, kind="logistic", delta=delta)
+        p6_fn = lambda: sp_ops.sparse_admm_iter_plain(
+            DD, lab, y, lam, x, kind="logistic", delta=delta)
+        o1, o2, op = k6_fn(), k6_fn(), p6_fn()
+        e_yl, e_dwv = k6_errs(torch, sp_ops, DD, y, o1, op)
+        same = all(torch.equal(u, v) for u, v in zip(o1, o2))
+        check(e_yl <= 4e-6 and e_dwv <= K6_DWV_FULL and same,
+              f"K6 at {m}x{n} {label}: y/lam err {e_yl:.2e} <= 4e-6, "
+              f"d/w/v err {e_dwv:.2e} <= {K6_DWV_FULL:g} of sum |terms|, "
+              "bitwise repeat")
+        err = max(float((u - v).abs().max()) for u, v in zip(o1, op))
+        del o1, o2, op
+        # the CSR and CSC as stored (padding included); y, lam, aux read,
+        # y', lam' written; x read, d, w, v written
+        nbytes = DD.nbytes + 5 * m * 4 + 4 * n * 4
+        tb = bound(rt, nbytes, nflops)
+        times[label] = (timer(k6_fn), timer(p6_fn), tb, err)
+        t = times[label][0]
+        print(f"time K6 [{label} values] at {m}x{n} (nb {DD.nblocks}, bm "
+              f"{DD.block_m}, kp {DD.kp}, kc {DD.kc}, nnz {DD.nnz}, u in "
+              f"{'shared' if sp_ops.u_in_shared(DD) else 'L2'}): kernel "
+              f"{t:.3f} ms, {nbytes / t / 1e6:.0f} GB/s of "
+              f"{nbytes / 1e9:.3f} GB, bound {tb[0]:.3f} ms ({tb[1]}), "
+              f"plain {times[label][1]:.3f} ms", flush=True)
+    del k6_fn, p6_fn, DD
+    k_ms, p_ms, tb, err = times["f32"]
+    record(rt, "K6_sparse_admm_iter", err, k_ms, p_ms, tb, None)
+    # probe: K3 on the densified copy (the reference's sparse_bench
+    # comparison of the two formats)
+    Dd = D.to_dense()
+    k3_ms = timer(lambda: iter_ops.admm_iter_full(
+        Dd, lab, y, lam, x, kind="logistic", delta=delta))
+    route = iter_ops.route(m, n, Dd.dtype)
+    print(f"probe: K3 on the densified {m}x{n} copy "
+          f"({Dd.numel() * 4 / 1e9:.1f} GB, route {route}): {k3_ms:.3f} "
+          f"ms; K6 on the BlockCSR {k_ms:.3f} ms ({k3_ms / k_ms:.2f}x)",
+          flush=True)
+    del Dd, D, lab, prob, y, lam, x, res_c
+    print(f"sparse: freed, {free_device_memory(torch):.2f} GB still "
+          "allocated", flush=True)
+
+    phase_sparse_cli(torch, cli, sp)
+    phase_column_split(torch, rt, reps, cs)
+
+
+def phase_sparse_cli(torch, cli, sp):
+    """``launch.fit.main --density`` for logistic and lasso on the card,
+    the result lines held: the logistic objective below its value at
+    x = 0, the lasso's KKT violation at most 1e-3 mu."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.launch import fit as fit_cli
+
+    rows = cli["nodes"] * cli["rows_per_node"]
+    for problem in ("logistic", "lasso"):
+        argv = ["--density", str(sp["density"]), "--problem", problem,
+                "--nodes", str(cli["nodes"]), "--rows-per-node",
+                str(cli["rows_per_node"]), "--features", str(sp["n"]),
+                "--iters", str(cli["iters"]), "--seed", str(SEED)]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = fit_cli.main(argv)
+        secs = time.perf_counter() - t0
+        out = buf.getvalue()
+        for line in out.strip().splitlines():
+            print(f"cli {problem}: {line}", flush=True)
+        ok = bool(torch.isfinite(res.x).all()) and res.x.is_cuda
+        if problem == "lasso":
+            mt = re.search(r"KKT violation: (\S+) \(mu (\S+)\)", out)
+            viol, mu = float(mt.group(1)), float(mt.group(2))
+            check(ok and viol <= 1e-3 * mu,
+                  f"cli lasso --density at {rows} rows: KKT violation "
+                  f"{viol:.3g} <= 1e-3 mu ({1e-3 * mu:.3g}); {secs:.1f} s")
+        else:
+            obj = float(re.search(r"objective: (\S+),", out).group(1))
+            check(ok and obj < rows * math.log(2.0),
+                  f"cli logistic --density at {rows} rows: objective "
+                  f"{obj:.6g} < {rows * math.log(2.0):.6g} (x = 0); "
+                  f"{secs:.1f} s")
+        del res
+    free_device_memory(torch)
+
+
+def phase_column_split(torch, rt, reps: int, cs):
+    """The column-split dual lasso on a wide Gaussian problem built like
+    tests/test_column_split.py::_wide_problem (numpy, from the seed): one
+    K2a launch (the Gram of D_hat = [I; D^T]), then the iterations on the
+    engine's reference body; that file's certificates, in float64 on the
+    card; K2a timed at D_hat's shape."""
+    import numpy as np
+    from repro_torch.core.column_split import lasso_column_split
+    from repro_torch.kernels.gram import ops as gram_ops
+
+    m, N, ni, iters = cs["m"], cs["nodes"], cs["cols_per_node"], cs["iters"]
+    n = N * ni
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    Dn = rng.standard_normal((m, n), dtype=np.float32)
+    Dn *= np.float32(1.0 / math.sqrt(m))
+    x_true = np.zeros((n,), np.float32)
+    x_true[rng.permutation(n)[:8]] = 1.0
+    bn = Dn @ x_true + np.float32(0.05) * rng.standard_normal(
+        m, dtype=np.float32)
+    mu = 0.1 * float(np.abs(Dn.T @ bn).max())
+    D = torch.from_numpy(Dn).cuda()
+    b = torch.from_numpy(bn).cuda()
+    del Dn
+    torch.cuda.synchronize()
+    print(f"column split: m {m} x n {n} ({N} nodes of {ni} columns), f32 "
+          f"({m * n * 4 / 1e9:.2f} GB; D_hat {(m + n) * m * 4 / 1e9:.2f} "
+          f"GB), mu {mu:.6g}; data {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    zero_counts(gram_ops.gram)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = lasso_column_split(D.reshape(m, N, ni).permute(1, 0, 2), b, mu,
+                             tau=1.0, iters=iters)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = gram_ops.gram.launches
+    check(launches == 1, f"column split: K2a launched {launches} time(s) "
+          "= 1 Gram of D_hat")
+    rt["launches"]["K2a_gram_column_split"] = launches
+    D64, b64 = D.double(), b.double()
+    x64, a64 = res.x.double(), res.alpha.double()
+    feas = float((D64.T @ a64).abs().max())
+    corr = D64.T @ (D64 @ x64 - b64)
+    viol = max(float(corr.abs().max()) - mu, 0.0)
+    sup = x64.abs() > 1e-7
+    sup_err = float((corr[sup] + mu * torch.sign(x64[sup])).abs().max()) \
+        if bool(sup.any()) else 0.0
+    del D64, corr
+    print(f"column split: {iters} iterations in {secs:.2f} s "
+          f"({secs * 1e3 / iters:.3f} ms/iter with the setup), Boyd's rule "
+          f"first held at {res.iters}; support {int(sup.sum())}", flush=True)
+    check(bool(torch.isfinite(res.x).all()) and feas <= 1.01 * mu,
+          f"column split: ||D^T alpha||_inf {feas:.6g} <= 1.01 mu "
+          f"({1.01 * mu:.6g})")
+    check(viol < 0.02 * mu and sup_err < 0.05 * mu,
+          f"column split KKT: violation {viol:.3g} < 0.02 mu "
+          f"({0.02 * mu:.3g}), support err {sup_err:.3g} < 0.05 mu "
+          f"({0.05 * mu:.3g})")
+    del res
+
+    # K2a at D_hat's shape against its plain version and D_hat.T @ D_hat
+    Dh = torch.cat([torch.eye(m, device=D.device), D.T])
+    del D
+    rows = Dh.shape[0]
+    timer = Timer(torch, reps)
+    G1, G2 = gram_ops.gram(Dh), gram_ops.gram_plain(Dh)
+    e = gram_err(torch, G1, G2)
+    check(e <= 1e-5 and torch.equal(G1, gram_ops.gram(Dh)),
+          f"K2a at D_hat's {rows}x{m}: err {e:.2e} <= 1e-5, bitwise repeat")
+    err = float((G1 - G2).abs().max())
+    del G1, G2
+    k_ms = timer(lambda: gram_ops.gram(Dh))
+    lib_ms = timer(lambda: Dh.T @ Dh)
+    record(rt, "K2a_gram_column_split", err, k_ms,
+           timer(lambda: gram_ops.gram_plain(Dh)),
+           bound(rt, rows * m * 4 + m * m * 4, rows * m * m), lib_ms)
+    print(f"K2a at D_hat's shape: {k_ms:.3f} ms, "
+          f"{rows * m * m / k_ms / 1e9:.1f} TFLOP/s of m n^2; "
+          f"D_hat.T @ D_hat {lib_ms:.3f} ms", flush=True)
+    del Dh, b
+    print(f"column split: freed, {free_device_memory(torch):.2f} GB still "
+          "allocated", flush=True)
+
+
 # K4's tensor-core kernel against the plain version with P rounded to bf16
 # as the kernel rounds it: what is left is the output's own bf16 rounding
 # (one ulp, at most 2^-7 |o|, where the two f32 results straddle a rounding
@@ -1644,6 +2067,7 @@ def main(argv=None):
           flush=True)
 
     phase_kernels(torch, rt)
+    phase_sparse_kernels(torch)
     phase_attn_kernels(torch)
     phase_wkv_kernels(torch)
     if args.skip_main:
@@ -1655,6 +2079,7 @@ def main(argv=None):
     print(f"admm: freed, {free_device_memory(torch):.2f} GB still "
           "allocated", flush=True)
     phase_problems(torch, rt, REPS)
+    phase_sparse(torch, rt, REPS)
     for arch, spec in LM.items():
         sh = spec["shapes"]["smoke" if args.lm_smoke else "full"]
         phase_lm(torch, rt, arch, sh, args.lm_smoke)

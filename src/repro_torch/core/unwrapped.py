@@ -1,5 +1,5 @@
 """Unwrapped ADMM with transpose reduction — paper Algorithms 1 & 2; port
-of ``repro/core/unwrapped.py`` (dense data).
+of ``repro/core/unwrapped.py``.
 
 Solves ``min_x rho/2 ||x||^2 + f(Dx)`` by splitting ``y = Dx``:
 
@@ -17,10 +17,12 @@ the other residual quantities are elementwise:
     s   = tau ||w||,   eps_dual ~ tau ||v||
 
 Data layout: ``D`` is ``(N, m_i, n)`` — N nodes, m_i rows each. N=1
-recovers the single-node Alg. 1. ``device`` (``"cuda"`` by default) is
+recovers the single-node Alg. 1. ``D`` may also be a flat
+:class:`~repro_torch.data.sparse.BlockCSR`: the same drivers run over the
+engine's sparse body (K6 on the card), with the Gram set up on the host,
+and y / lam come back as (1, m). ``device`` (``"cuda"`` by default) is
 where the solve runs; inputs elsewhere are moved there once, and asking for
-``cuda`` without a GPU raises. Sparse (``BlockCSR``) and out-of-core
-drivers are ROADMAP items 6 and 7.
+``cuda`` without a GPU raises. The out-of-core driver is ROADMAP item 7.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.core import gram as gram_lib
 from repro_torch.core.prox import ProxLoss
+from repro_torch.data.sparse import BlockCSR
 from repro_torch.device import resolve_device
 
 Tensor = torch.Tensor
@@ -87,13 +90,16 @@ class UnwrappedADMM:
                                residency=self.residency, device=self.device)
 
     def _to_device(self, a, dtype=None) -> Optional[Tensor]:
-        """Inputs (tensors or numpy arrays) onto the solve's device, once."""
+        """Inputs (tensors, numpy arrays or a BlockCSR) onto the solve's
+        device, once."""
         if a is None:
             return None
         from repro_torch.engine.engine import reject_sparse
         if isinstance(a, np.ndarray):
             a = torch.from_numpy(a)
         reject_sparse(a)
+        if isinstance(a, BlockCSR):
+            return a.to(self.device)
         return a.to(device=torch.device(self.device), dtype=dtype)
 
     # -- setup (Alg. 2 lines 2-3): one Gram reduction + one factorization --
@@ -147,21 +153,34 @@ class UnwrappedADMM:
         """``iters`` iterations with per-iteration history (objective,
         residuals and the Theorem-2 gradient norm through the engine's
         streaming ``rmatvec``). No per-iteration host sync: the history
-        stays on the device until the end."""
+        stays on the device until the end. ``D`` is node-stacked dense
+        (N, m_i, n) or a flat :class:`BlockCSR` (y / lam come back as
+        (1, m))."""
         if obs is not None:
             raise NotImplementedError("observability (repro.obs) is not "
                                       "ported yet (ROADMAP item 10)")
         D, aux, x0 = (self._to_device(D), self._to_device(aux),
                       self._to_device(x0))
+        if isinstance(D, BlockCSR):
+            return self._run_sparse(D, aux, iters, x0=x0, record=record)
         N, mi, n = D.shape
         m = N * mi
-        acc = gram_lib._acc_dtype(D.dtype)
-        eng = self.engine
         Dflat = D.reshape(m, n)
         L = self.setup(D)
+        y, lam, d = self._init_state(Dflat, x0, m, n,
+                                     gram_lib._acc_dtype(D.dtype))
+        res = self._run_loop(Dflat, aux, L, y, lam, d, iters, record)
+        return res._replace(y=res.y.reshape(N, mi), lam=res.lam.reshape(N, mi))
+
+    def _run_loop(self, Dflat, aux, L, y, lam, d, iters, record):
+        """The fixed-iteration loop of ``run`` over flat data (dense (m, n)
+        or a BlockCSR) from the factor L and the state (y, lam, d); y and
+        lam come back flat."""
+        m, n = Dflat.shape
+        acc = gram_lib._acc_dtype(Dflat.dtype)
+        eng = self.engine
         Dres = eng.prepare(Dflat)
         aux_f = aux.reshape(m) if aux is not None else None
-        y, lam, d = self._init_state(Dflat, x0, m, n, acc)
         x = torch.zeros((n,), dtype=acc, device=Dflat.device)
         k_conv = torch.tensor(-1, device=Dflat.device)
         hist = []
@@ -196,8 +215,7 @@ class UnwrappedADMM:
                 torch.zeros((0, 4), dtype=acc)
             history = ADMMHistory(h[:, 0], h[:, 1], h[:, 2], h[:, 3], kc)
         iters_used = kc + 1 if kc >= 0 else iters
-        return ADMMResult(x, y.reshape(N, mi), lam.reshape(N, mi),
-                          iters_used, history)
+        return ADMMResult(x, y, lam, iters_used, history)
 
     # -- early-stopping driver, deployment path -----------------------------
     def solve(self, D, aux, max_iters: int = 500, x0=None,
@@ -223,6 +241,47 @@ class UnwrappedADMM:
     def solve_streaming(self, store, **kwargs):
         raise NotImplementedError("the out-of-core streaming solve is not "
                                   "ported yet (ROADMAP item 7)")
+
+    # -- sparse drivers: the same loop over a BlockCSR -----------------------
+    # The sparse Gram is a HOST pass (scipy's CSR matmul,
+    # kernels/spgram/ops.py); the per-iteration body, stopping rule,
+    # telemetry and warm start are the dense drivers' own, through the
+    # engine's sparse body.
+
+    def _sparse_setup(self, D: BlockCSR) -> Tensor:
+        G, _ = self.engine.gram(D)
+        return gram_lib.gram_factor(G, ridge=self.rho / self.tau)
+
+    def _sparse_init(self, D: BlockCSR, x0, m, n, acc):
+        from repro_torch.kernels.spgram import ops as spgram_ops
+        if x0 is not None:
+            y = spgram_ops.matvec(D, x0.to(acc))
+            lam = torch.zeros((m,), dtype=acc, device=D.device)
+            d = self.engine.transpose_d(D, y, lam)
+        else:
+            y = torch.zeros((m,), dtype=acc, device=D.device)
+            lam = torch.zeros_like(y)
+            d = torch.zeros((n,), dtype=acc, device=D.device)
+        return y, lam, d
+
+    def _run_sparse(self, D: BlockCSR, aux, iters, x0=None, record=True):
+        m, n = D.shape
+        L = self._sparse_setup(D)
+        y, lam, d = self._sparse_init(D, x0, m, n,
+                                      gram_lib._acc_dtype(D.dtype))
+        res = self._run_loop(D, aux, L, y, lam, d, iters, record)
+        return res._replace(y=res.y[None], lam=res.lam[None])
+
+
+def sparse_unwrapped_lasso_matrices(D, b, mu: float):
+    """The stacked operator D_hat = [I; D] of the sparse fit
+    min mu|x| + f(Dx) (paper section 7, eq. 15), the identity block
+    standing for a dedicated "node" N+1, as one flat (n + N m_i, n)
+    tensor; ``b`` and ``mu`` belong to the caller's StackedProx."""
+    N, mi, n = D.shape
+    Dflat = D.reshape(N * mi, n)
+    return torch.cat([torch.eye(n, dtype=D.dtype, device=D.device), Dflat],
+                     dim=0)
 
 
 def flat_to_nodes(D2: Tensor, N: int) -> Tensor:

@@ -34,6 +34,9 @@ Budgets:
     is at most ``GRAM_CTAS``, four full waves of three CTAs per SM. K2b
     (Gram + RHS) takes the same splits; past 16 RHS columns its grid adds
     one RHS tile per column stripe and split.
+  * sparse data (``BlockCSR``, ``sparse_block_m``): the reference's
+    2 MB budget for a block's CSR and CSC bytes, so the layout, and with it
+    the order of every block sum, is the reference's on both devices.
   * chunked backend (a Python loop of torch ops over row blocks): on the
     CPU, ``CACHE_BUDGET`` stands for the last-level-cache slice one core
     keeps hot between the Dx and D^T products of a block; on the card,
@@ -44,6 +47,7 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 SMEM_PER_BLOCK = 227 * 1024        # bytes of shared memory a block may use
@@ -176,6 +180,33 @@ def gram_splits(m: int, n: int, dtype) -> int:
         tiles = nt * (nt + 1) // 2
         CACHE[key] = (max(1, min(GRAM_CTAS // tiles,
                                  -(-m // GRAM_PANEL))),)
+    return CACHE[key][0]
+
+
+def sparse_block_m(m: int, n: int, kp: int, dtype) -> int:
+    """Row-block height for the padded block-CSR path (DESIGN.md section
+    10), the reference's rule and budget, so that a ``BlockCSR`` has the
+    reference's layout on every device; ``dtype`` is a torch or numpy
+    dtype of the values.
+
+    nnz-budgeted, not (m x n)-budgeted: a block's live bytes are its CSR
+    slice ``bm * kp * (4 + dsize)`` plus the same nonzeros again in the
+    local-CSC companion (padding slack rides in the 2x), plus the five
+    (bm,) iterate vectors — so the block height scales with 1/density.
+    Tall floor (1024): the local CSC pads each column to the block's
+    largest per-column count, and that Poisson slack shrinks as blocks
+    grow. K6 (``csrc/spgram.cu``) takes any height."""
+    kp = max(int(kp), 1)
+    if isinstance(dtype, torch.dtype):
+        dsize, name = _dsize(dtype), _name(dtype)
+    else:
+        dsize, name = np.dtype(dtype).itemsize, np.dtype(dtype).name
+    key = ("sparse", int(m), int(n), kp, name)
+    if key not in CACHE:
+        rows = CACHE_BUDGET // max(1, 2 * kp * (4 + dsize) + 20)
+        cap = _row_cap(m, 8)
+        CACHE[key] = (_clamp_multiple(rows, 8, min(1024, cap),
+                                      min(16384, cap)),)
     return CACHE[key][0]
 
 

@@ -1,5 +1,5 @@
 """The iteration engine — the one place solver iteration bodies live; port
-of ``repro/engine/engine.py`` (dense data).
+of ``repro/engine/engine.py``.
 
 Backends (DESIGN.md section 8):
 
@@ -14,6 +14,16 @@ Backends (DESIGN.md section 8):
                      version).
   * ``chunked``    — a Python loop of torch ops over row blocks with the
                      same one-pass body; each block is upcast alone.
+  * ``sparse``     — padded block-CSR data (``data/sparse.BlockCSR``): the
+                     O(nnz) body, gather-based Dx and gather-based d/w/v
+                     over each block's local CSC (``kernels/spgram``; on
+                     the card the kernel K6, ``csrc/spgram.cu``, for the
+                     kernel prox kinds with f32 or bf16 values, the torch
+                     body otherwise). Selected by the DATA TYPE: a
+                     ``BlockCSR`` takes this path under every backend but
+                     an explicit ``reference``, which densifies (the parity
+                     oracle); dense data under ``"sparse"`` resolve to the
+                     device default, as in the reference.
   * ``reference``  — the textbook two-pass oracle (Dx pass, then a D^T
                      pass).
 
@@ -24,9 +34,8 @@ chunked needs a coordinatewise prox, else reference. ``residency="bf16"``
 keeps the iteration copy of D in bf16 with f32 accumulation;
 ``residency="auto"`` resolves to bf16 only on the cuda backend, as the
 reference resolved it only on the real-TPU pallas backend. Whether bf16 is
-a win on the card is for ``chip_smoke.py``'s numbers to show.
-
-Sparse data (``BlockCSR``) is ROADMAP item 6 and raises.
+a win on the card is for ``chip_smoke.py``'s numbers to show. A
+``BlockCSR`` casts its values only; its indices stay int32.
 """
 from __future__ import annotations
 
@@ -37,14 +46,17 @@ import torch
 
 from repro_torch.core import gram as gram_lib
 from repro_torch.core.prox import ProxLoss
+from repro_torch.data.sparse import BlockCSR
 from repro_torch.device import resolve_device
 from repro_torch.engine import autotune
 from repro_torch.kernels.admm_iter import ops as iter_ops
 from repro_torch.kernels.gram import ops as gram_ops
+from repro_torch.kernels.spgram import ops as spgram_ops
+from repro_torch.kernels.spgram import spgram
 
 Tensor = torch.Tensor
 
-BACKENDS = ("reference", "chunked", "cuda")
+BACKENDS = ("reference", "chunked", "sparse", "cuda")
 
 # Prox kinds the fused CUDA iteration kernel evaluates in registers
 # (the reference's PALLAS_KINDS).
@@ -73,13 +85,17 @@ def default_backend(device) -> str:
 
 
 def reject_sparse(D):
-    """Raise for data the port does not take yet."""
-    if type(D).__name__ == "BlockCSR" or (
-            isinstance(D, torch.Tensor) and D.layout != torch.strided):
-        raise NotImplementedError(
-            "sparse data (BlockCSR) is not ported yet (ROADMAP item 6)")
+    """Raise for data the engine does not take: torch's own sparse layouts
+    (sparse data go in as a ``BlockCSR``) and anything but a tensor or a
+    ``BlockCSR``."""
+    if isinstance(D, BlockCSR):
+        return
     if not isinstance(D, torch.Tensor):
-        raise TypeError(f"expected a torch.Tensor, got {type(D).__name__}")
+        raise TypeError(f"expected a torch.Tensor or a BlockCSR, got "
+                        f"{type(D).__name__}")
+    if D.layout != torch.strided:
+        raise TypeError(f"torch's {D.layout} layout is not taken; build a "
+                        "BlockCSR (repro_torch.data.sparse) for sparse data")
 
 
 def gram_stats(D: Tensor, b: Optional[Tensor] = None, *,
@@ -90,7 +106,15 @@ def gram_stats(D: Tensor, b: Optional[Tensor] = None, *,
     section 4). ``b`` may be None (Gram only), (m,) or (m, r); returns
     (G, c) with c None iff b is None."""
     reject_sparse(D)
-    if backend == "auto":
+    if isinstance(D, BlockCSR):
+        if backend == "reference":
+            # the parity oracle: densify, then the textbook dense Gram
+            Dd = D.to_dense()
+            return gram_lib.gram(Dd), \
+                None if b is None else gram_lib.gram_rhs(Dd, b)
+        # the Gram on the host (scipy), the RHS by the CSC gather
+        return spgram_ops.sparse_gram_rhs(D, b)
+    if backend in ("auto", "sparse"):
         backend = default_backend(D.device)
     m, n = D.shape
     if backend == "cuda" and D.dtype not in KERNEL_DTYPES:
@@ -148,7 +172,9 @@ class IterationEngine:
 
     # -- backend selection (rules documented in DESIGN.md section 8) -----
     def resolve(self, dtype=torch.float32) -> str:
-        b = default_backend(self.dev) if self.backend == "auto" \
+        """The backend of dense data (a ``BlockCSR`` takes the sparse body
+        whatever this says, unless the engine asks for ``reference``)."""
+        b = default_backend(self.dev) if self.backend in ("auto", "sparse") \
             else self.backend
         if b == "cuda" and (self.loss.name not in KERNEL_KINDS
                             or dtype not in KERNEL_DTYPES):
@@ -174,20 +200,23 @@ class IterationEngine:
     def prepare(self, D: Tensor) -> Tensor:
         """Move D to the engine's device and cast it ONCE to its
         iteration-residency dtype (bf16 halves the per-iteration bytes;
-        accumulation stays f32)."""
+        accumulation stays f32). A ``BlockCSR`` casts its values only."""
         reject_sparse(D)
         D = D.to(self.dev)
         dt = RESIDENCY_DTYPES[self.resolve_residency(D.dtype)]
         if dt is None or D.dtype == dt:
             return D
-        return D.to(dt)
+        return D.astype(dt) if isinstance(D, BlockCSR) else D.to(dt)
 
     # -- setup: Gram (+ RHS) in one data pass -----------------------------
     def gram(self, D: Tensor, b: Optional[Tensor] = None,
              block_rows: Optional[int] = None):
         self._check(D)
-        return gram_stats(D, b, backend=self._gram_backend(),
-                          block_rows=block_rows)
+        backend = self._gram_backend()
+        if isinstance(D, BlockCSR) and self.backend == "reference":
+            # the densify oracle stays reachable for the sparse Gram too
+            backend = "reference"
+        return gram_stats(D, b, backend=backend, block_rows=block_rows)
 
     def _gram_backend(self) -> str:
         b = default_backend(self.dev) if self.backend == "auto" \
@@ -199,8 +228,11 @@ class IterationEngine:
         """D^T u in accumulation precision. The dense ``gram_rhs`` upcasts
         ALL of D at once, which would materialize a full f32 copy of a
         bf16-resident D; the streaming-class backends (chunked, cuda)
-        upcast one block at a time. ``u`` may be (m,) or (m, r)."""
+        upcast one block at a time; a ``BlockCSR`` gathers over its local
+        CSC. ``u`` may be (m,) or (m, r)."""
         self._check(D)
+        if isinstance(D, BlockCSR):
+            return spgram_ops.rmatvec(D, u)
         b = default_backend(self.dev) if self.backend == "auto" \
             else self.backend
         if b == "reference":
@@ -220,8 +252,14 @@ class IterationEngine:
                 lam: Tensor, x: Tensor, want_dual: bool = True
                 ) -> EngineStep:
         """Given x^{k+1}: stream D once, producing y^{k+1}, lam^{k+1} and
-        the reductions that drive iteration k+2 and the stopping rule."""
+        the reductions that drive iteration k+2 and the stopping rule.
+        ``D`` is a dense (m, n) tensor or a :class:`BlockCSR`."""
         self._check(D)
+        if isinstance(D, BlockCSR):
+            if self.backend == "reference":
+                return self._iterate_reference(D.to_dense(), aux, y, lam,
+                                               x, want_dual)
+            return self._iterate_sparse(D, aux, y, lam, x, want_dual)
         backend = self.resolve(D.dtype)
         if (backend == "chunked" and self.backend == "auto"
                 and D.numel() * D.element_size()
@@ -289,6 +327,20 @@ class IterationEngine:
             param=self.loss.kernel_param)
         return EngineStep(y_new, lam_new, d, w if want_dual else None,
                           v if want_dual else None)
+
+    def _iterate_sparse(self, D: BlockCSR, aux, y, lam, x, want_dual):
+        """O(nnz) fused body: K6 where the dense path would take the cuda
+        backend (the card, a kernel prox kind, f32 or bf16 values), the
+        torch body (``spgram.sparse_iterate``) otherwise."""
+        if self.resolve(D.dtype) == "cuda":
+            out = spgram_ops.sparse_admm_iter_full(
+                D, aux, y, lam, x, kind=self.loss.name,
+                delta=self.loss.kernel_delta_scale * self.delta,
+                param=self.loss.kernel_param, want_dual=want_dual)
+        else:
+            out = spgram.sparse_iterate(self.loss, self.delta, D, aux, y,
+                                        lam, x, want_dual=want_dual)
+        return EngineStep(*out)
 
     # -- host-loop step ---------------------------------------------------
     def make_step(self, D: Tensor, aux: Optional[Tensor], L: Tensor):

@@ -1,6 +1,7 @@
 """LocalExecutor — device-resident data, the paper's single-node Alg. 1;
-port of ``repro/exec/local.py`` (dense data). Accepts node-stacked dense
-(N, m_i, n) tensors; ``BlockCSR`` is ROADMAP item 6 and raises."""
+port of ``repro/exec/local.py``. Accepts node-stacked dense (N, m_i, n)
+tensors or a flat :class:`~repro_torch.data.sparse.BlockCSR` (y and lam
+then come back as (1, m))."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,6 +9,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import gram as gram_lib
+from repro_torch.data.sparse import BlockCSR
 from repro_torch.engine.engine import reject_sparse
 from repro_torch.engine.streaming import SweepResult
 from repro_torch.exec.base import SolveExecutor
@@ -22,14 +24,20 @@ class LocalExecutor(SolveExecutor):
                  gram_block_rows: Optional[int] = None):
         reject_sparse(D)
         self.engine = engine
-        N, mi, n = D.shape
-        self.m, self.n = N * mi, n
-        self._stack = (N, mi)
-        self._Dflat = D.reshape(self.m, n)
+        self.sparse = isinstance(D, BlockCSR)
+        if self.sparse:
+            self.m, self.n = D.shape
+            self._stack = None               # y comes back as (1, m)
+            self._Dflat = D
+        else:
+            N, mi, n = D.shape
+            self.m, self.n = N * mi, n
+            self._stack = (N, mi)
+            self._Dflat = D.reshape(self.m, n)
         self.acc = gram_lib._acc_dtype(D.dtype)
         self.device = D.device
         self.ycols = getattr(engine.loss, "ycols", 1)
-        self.backend = engine.resolve(D.dtype)
+        self.backend = "sparse" if self.sparse else engine.resolve(D.dtype)
         self._aux = aux.reshape(self.m) if aux is not None else None
         self._gbr = gram_block_rows
         self._Dres = None
@@ -52,7 +60,11 @@ class LocalExecutor(SolveExecutor):
             return self.zero_x()
         # warm start: y = D x0, lam = 0, d = D^T(y - lam) — one extra
         # setup-time pass
-        y = self._Dflat.to(self.acc) @ x0.to(self.acc)
+        if self.sparse:
+            from repro_torch.kernels.spgram import ops as spgram_ops
+            y = spgram_ops.matvec(self._Dflat, x0.to(self.acc))
+        else:
+            y = self._Dflat.to(self.acc) @ x0.to(self.acc)
         self._y = y
         self._lam = torch.zeros_like(y)
         return self.engine.transpose_d(self._Dflat, y, self._lam)
@@ -63,6 +75,8 @@ class LocalExecutor(SolveExecutor):
         return sw
 
     def final_iterates(self):
+        if self._stack is None:
+            return self._y[None], self._lam[None]
         N, mi = self._stack
         shape = (N, mi) + tuple(self._y.shape[1:])
         return self._y.reshape(shape), self._lam.reshape(shape)

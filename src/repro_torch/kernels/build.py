@@ -1,5 +1,5 @@
 """Build and load the port's CUDA kernels (K1 prox, K2 gram, K3 admm_iter,
-K4 flash_attn and flash_attn_sm90, K5 wkv).
+K4 flash_attn and flash_attn_sm90, K5 wkv, K6 spgram).
 
 The sources in ``csrc/`` have a plain C interface. ``library()`` compiles
 them with one ``nvcc -c`` per source, all started together, links the
@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("prox.cu", "gram.cu", "admm_iter.cu", "flash_attn.cu",
-           "flash_attn_sm90.cu", "wkv.cu")
+           "flash_attn_sm90.cu", "wkv.cu", "spgram.cu")
 HEADERS = ("prox.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC")
@@ -50,6 +50,8 @@ SIGNATURES = {
     + (_LL,) * 12 + (_F, _I, _P),
     "repro_flash_attn_tc": (_P,) * 4 + (_I,) * 6 + (_LL,) * 12 + (_F, _I, _P),
     "repro_wkv": (_P,) * 7 + (_I,) * 6 + (_LL,) * 15 + (_F, _P),
+    "repro_spgram_iter": (_P,) * 4 + (_I,) + (_P,) * 8 + (_LL,) + (_I,) * 6
+    + (_F, _F, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -11,7 +11,13 @@ The data come from the port's generators (``lasso_problem`` for lasso,
 card (``--device cuda``) unless asked for the CPU; the result lines
 (lasso: the KKT violation and support error; logistic: objective and
 training accuracy; SVM: objective) are computed on the device, in float64
-sums over row blocks, without a host copy of D. The JAX CLI's other flags
+sums over row blocks, without a host copy of D.
+
+``--density p`` generates SPARSE data instead (the reference's
+``sparse_lasso_problem`` / ``sparse_classification_problem``, N x m_i rows
+at Bernoulli density p): ``--sparse-format blockcsr`` (the default) solves
+over the padded block-CSR (K6 on the card) and prints O(nnz) result lines;
+``dense`` densifies and takes the dense path. The JAX CLI's other flags
 exit with the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -21,7 +27,10 @@ import time
 
 import torch
 
+from repro_torch.core.fit import FitResult
 from repro_torch.core.fit import fit as fit_glm
+from repro_torch.core.prox import make_hinge, make_logistic
+from repro_torch.data import sparse as sparse_data
 from repro_torch.data import synthetic
 from repro_torch.device import resolve_device
 from repro_torch.exec.problems import EXECUTOR_ITEMS
@@ -33,7 +42,7 @@ NOT_PORTED = {
     "--cluster-compress": 9, "--cluster-staleness": 9, "--chaos-seed": 9,
     "--chaos-spec": 9, "--min-quorum": 9, "--iter-deadline": 9,
     "--checkpoint-dir": 7, "--checkpoint-every": 7, "--resume": 7,
-    "--density": 6, "--sparse-format": 6, "--obs-dir": 10,
+    "--obs-dir": 10,
 }
 BLOCK_ROWS = 1 << 20
 
@@ -75,6 +84,67 @@ def classifier_summary(D2: torch.Tensor, a: torch.Tensor, x: torch.Tensor):
     return logi, hinge, hits / D2.shape[0]
 
 
+def _admm_params(problem):
+    """(loss, rho, tau) of the separable-loss ADMM paths (the reference's
+    table, ``repro/launch/fit.py::_admm_params``)."""
+    if problem == "logistic":
+        return make_logistic(), 0.0, 0.1
+    return make_hinge(1.0), 1.0, 0.5                  # svm, C = 1
+
+
+def _fit_sparse(args, bcsr, aux, mu, dev):
+    """In-memory sparse fit over the engine's block-CSR body."""
+    from repro_torch.core.fasta import transpose_reduction_lasso
+    from repro_torch.core.unwrapped import UnwrappedADMM
+    from repro_torch.engine import gram_stats
+
+    if args.method != "transpose":
+        raise SystemExit("--density with blockcsr supports --method "
+                         "transpose only (consensus is a dense-data path)")
+    print(f"sparse: {bcsr}", flush=True)
+    if args.problem == "lasso":
+        # the reference goes through service/stats.py's SufficientStats
+        # (ROADMAP item 10); the same (G, c) come from gram_stats
+        G, c = gram_stats(bcsr, aux)
+        fr = transpose_reduction_lasso(G, c, mu, iters=args.iters)
+        return FitResult(fr.x, int(fr.iters), fr.objective, "transpose",
+                         "lasso")
+    if args.problem not in ("logistic", "svm"):
+        raise SystemExit(f"--density does not support {args.problem!r} "
+                         f"(needs a separable ProxLoss on Dx)")
+    loss, rho, tau = _admm_params(args.problem)
+    res = UnwrappedADMM(loss=loss, tau=tau, rho=rho, device=dev).run(
+        bcsr, aux, iters=args.iters)
+    return FitResult(res.x, int(res.iters), res.history.objective,
+                     "transpose", args.problem)
+
+
+def sparse_summary(problem, bcsr, a, x, mu):
+    """The O(nnz) result line: everything needs only Dx and D^T r, in
+    float64 on the data's device."""
+    from repro_torch.kernels.spgram import ops as spgram_ops
+    D64, x64, a64 = bcsr.astype(torch.float64), x.double(), a.double()
+    Dx = spgram_ops.matvec(D64, x64)
+    if problem == "lasso":
+        grad = spgram_ops.rmatvec(D64, Dx - a64)
+        on = x64.abs() > 1e-7
+        viol = max(
+            float((grad[on] + mu * torch.sign(x64[on])).abs().max())
+            if bool(on.any()) else 0.0,
+            float(torch.clamp(grad[~on].abs() - mu, min=0.0).max())
+            if bool((~on).any()) else 0.0)
+        return (f"KKT violation: {viol:.2e} (mu {mu:.6g}), support: "
+                f"{int(on.sum())}")
+    if problem == "logistic":
+        zero = torch.zeros((), dtype=torch.float64, device=Dx.device)
+        obj = float(torch.sum(torch.logaddexp(zero, -a64 * Dx)))
+        acc = float(torch.mean((torch.sign(Dx) == a64).double()))
+        return f"objective: {obj:.2f}, train acc: {acc:.4f}"
+    obj = float(torch.sum(torch.clamp(1.0 - a64 * Dx, min=0.0))
+                + 0.5 * torch.dot(x64, x64))
+    return f"objective: {obj:.2f}"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--problem", default="logistic",
@@ -92,6 +162,13 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="where the solve runs (default cuda; cpu on ask)")
+    ap.add_argument("--density", type=float, default=None,
+                    help="generate SPARSE data with this Bernoulli "
+                         "density (0 < p <= 1); omit for dense")
+    ap.add_argument("--sparse-format", default="blockcsr",
+                    choices=["blockcsr", "dense"],
+                    help="with --density: run the padded block-CSR path "
+                         "(O(nnz) per pass) or densify for comparison")
     for flag in NOT_PORTED:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -106,6 +183,8 @@ def main(argv=None):
                          f"(ROADMAP item {EXECUTOR_ITEMS[args.executor]})")
 
     dev = resolve_device(args.device)
+    if args.density is not None:
+        return _main_sparse(args, dev)
     N, mi, n = args.nodes, args.rows_per_node, args.features
     het = 1.0 if args.heterogeneous else 0.0
     t0 = time.time()
@@ -125,7 +204,12 @@ def main(argv=None):
     print(f"data: {N} nodes x {mi} rows x {n} features "
           f"({N*mi*n*4/2**30:.2f} GiB) on {dev} in {time.time()-t0:.1f}s",
           flush=True)
+    return _solve_and_report(args, D, aux, mu, dev)
 
+
+def _solve_and_report(args, D, aux, mu, dev):
+    """``fit()`` on node-stacked dense data, then the result lines."""
+    n = D.shape[-1]
     t0 = time.time()
     res = fit_glm(args.problem, D, aux, method=args.method,
                   mu=mu if args.problem in ("lasso", "sparse_logistic")
@@ -148,6 +232,40 @@ def main(argv=None):
             x64 = res.x.double()
             obj = hinge + 0.5 * float(torch.dot(x64, x64))
             print(f"objective: {obj:.2f}")
+    return res
+
+
+def _main_sparse(args, dev):
+    """``main`` for ``--density``: sparse data, then the block-CSR solve or
+    the dense path on the densified matrix."""
+    N, mi, n = args.nodes, args.rows_per_node, args.features
+    m = N * mi
+    t0 = time.time()
+    if args.problem == "lasso":
+        prob = sparse_data.sparse_lasso_problem(args.seed, m, n,
+                                                args.density, device=dev)
+        D, aux = prob.D, prob.b
+        mu = args.mu if args.mu is not None else float(prob.mu)
+    else:
+        prob = sparse_data.sparse_classification_problem(
+            args.seed, m, n, args.density, device=dev)
+        D, aux = prob.D, prob.labels
+        mu = args.mu if args.mu is not None else 1.0
+    blockcsr = args.sparse_format == "blockcsr"
+    gib = (D.nbytes if blockcsr else m * n * 4) / 2 ** 30
+    print(f"data: {m} rows x {n} features at density {args.density} -> "
+          f"{args.sparse_format} ({gib:.3f} GiB) on {dev} in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    if not blockcsr:
+        return _solve_and_report(args, D.to_dense().reshape(N, mi, n),
+                                 aux.reshape(N, mi), mu, dev)
+    t0 = time.time()
+    res = _fit_sparse(args, D, aux, mu, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    print(f"[{args.method}] {args.problem}: {res.iters} iters in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    print(sparse_summary(args.problem, D, aux, res.x, mu), flush=True)
     return res
 
 

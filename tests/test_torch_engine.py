@@ -123,21 +123,40 @@ def test_backend_resolution_rules():
                    residency="auto").resolve_residency() == "bf16"
     assert _engine(huber_like, 1.0, backend="cuda",
                    residency="auto").resolve_residency() is None
-    for bad in ("pallas", "pallas_interpret", "sparse"):
+    for bad in ("pallas", "pallas_interpret"):
         with pytest.raises(ValueError):
             _engine(logistic, 1.0, backend=bad)
+    # "sparse" is a data-format backend: dense data resolve to the default
+    assert _engine(logistic, 1.0, backend="sparse").resolve() == "chunked"
     with pytest.raises(ValueError):
         _engine(logistic, 1.0, residency="fp8")
 
 
 def test_sparse_data_names_roadmap_item():
+    """Sparse data (ROADMAP item 6, now ported) go in as a BlockCSR: its
+    Gram and one iteration equal the dense engine's on the densified
+    matrix; torch's own sparse layouts and other objects raise."""
+    from repro_torch.data.sparse import BlockCSR
     eng = _engine(tprox.make_logistic(), 1.0)
-    BlockCSR = type("BlockCSR", (), {})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        eng.gram(BlockCSR())
-    sp = torch.eye(4).to_sparse()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        eng.iterate(sp, None, torch.zeros(4), torch.zeros(4), torch.zeros(4))
+    rng = np.random.default_rng(0)
+    D = rng.standard_normal((300, 12)).astype(np.float32)
+    D[rng.random(D.shape) < 0.7] = 0
+    B = BlockCSR.from_dense(D, block_m=64, device="cpu")
+    Dt = torch.from_numpy(D)
+    np.testing.assert_allclose(eng.gram(B)[0].numpy(),
+                               eng.gram(Dt)[0].numpy(), rtol=1e-5,
+                               atol=1e-5)
+    y, lam, x = (torch.from_numpy(rng.standard_normal(k).astype(np.float32))
+                 for k in (300, 300, 12))
+    lab = torch.sign(y)
+    for got, want in zip(eng.iterate(B, lab, y, lam, x),
+                         eng.iterate(Dt, lab, y, lam, x)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=3e-5)
+    with pytest.raises(TypeError, match="BlockCSR"):
+        eng.gram(torch.eye(4).to_sparse())
+    with pytest.raises(TypeError, match="BlockCSR"):
+        eng.iterate(type("BlockCSR", (), {})(), None, torch.zeros(4),
+                    torch.zeros(4), torch.zeros(4))
 
 
 @pytest.mark.parametrize("backend", ["chunked", "cuda"])

@@ -123,7 +123,8 @@ def test_kernel_bodies_are_hand_written():
     for op, entry in (("prox", "repro_prox_update"), ("gram", "repro_gram"),
                       ("admm_iter", "repro_admm_iter"),
                       ("flash_attn", "repro_flash_attn"),
-                      ("wkv", "repro_wkv")):
+                      ("wkv", "repro_wkv"),
+                      ("spgram", "repro_spgram_iter")):
         assert f".{entry}(" in (PKG / "kernels" / op / "ops.py").read_text()
 
 
@@ -151,6 +152,7 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
     from repro_torch.kernels.flash_attn import ops as attn_ops
     from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.kernels.prox import ops as prox_ops
+    from repro_torch.kernels.spgram import ops as sp_ops
     from repro_torch.kernels.wkv import ops as wkv_ops
 
     def boom(*a, **k):
@@ -161,7 +163,8 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
                       (gram_ops, "gram_and_rhs_plain"),
                       (iter_ops, "admm_iter_plain"),
                       (attn_ops, "flash_attention_plain"),
-                      (wkv_ops, "wkv_plain")):
+                      (wkv_ops, "wkv_plain"),
+                      (sp_ops, "sparse_admm_iter_plain")):
         monkeypatch.setattr(mod, name, boom)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -184,6 +187,13 @@ def test_cuda_wrappers_never_call_the_plain_version(monkeypatch):
              gram_ops.gram_and_rhs.launches,
              iter_ops.admm_iter_full.launches)
     assert [b - a for a, b in zip(before, after)] == [1, 2, 1, 1 + res.iters]
+    from repro_torch.data.sparse import BlockCSR
+    B = BlockCSR.from_dense(D * (D.abs() > 1.0))
+    launched = sp_ops.sparse_admm_iter_full.launches
+    res = UnwrappedADMM(tprox.make_logistic(), tau=0.1).solve(
+        B, torch.sign(v), max_iters=5)
+    torch.cuda.synchronize()
+    assert sp_ops.sparse_admm_iter_full.launches == launched + res.iters
     q = torch.randn((1, 4, 100, 64), generator=g, device=dev)
     kv = torch.randn((1, 2, 100, 64), generator=g, device=dev)
     launched = attn_ops.flash_attention.launches

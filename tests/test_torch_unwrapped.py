@@ -197,8 +197,14 @@ def test_unported_paths_name_their_roadmap_item(classif):
         s.solve(Dt, lt, obs=object())
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
         s.solve_streaming(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        s.solve(type("BlockCSR", (), {})(), lt)
+    # sparse data (ROADMAP item 6) are ported: a BlockCSR of the same
+    # matrix solves to the dense solve's x, y / lam as (1, m)
+    from repro_torch.data.sparse import BlockCSR
+    B = BlockCSR.from_dense(Dt, block_m=256)
+    rs, rd = s.solve(B, lt.reshape(-1)), s.solve(Dt, lt)
+    assert rs.y.shape == (1, Dt.shape[0] * Dt.shape[1])
+    assert abs(rs.iters - rd.iters) <= 5
+    assert _rel(rs.x, rd.x) < 1e-4
 
 
 def test_history_shapes_and_final_x(classif):
@@ -284,7 +290,7 @@ def test_fit_cli_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--density", "0.1"], "ROADMAP item 6"),
+    (["--streaming"], "ROADMAP item 7"),
     (["--executor", "cluster"], "ROADMAP item 9"),
     (["--obs-dir", "obs"], "ROADMAP item 10"),
     (["--executor", "shard_map"], "ROADMAP item 8"),
