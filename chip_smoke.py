@@ -75,10 +75,32 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               one K2a launch for the Gram of D_hat = [I; D^T], 3000
               iterations, the certificates of tests/test_column_split.py,
               and K2a timed at D_hat's shape against ``D_hat.T @ D_hat``.
-   The sparse data are freed, and the LM slices run, qwen3-8b then
-   rwkv6-1.6b, each at full width and depth (f32 weights, random from the
-   seed; each freed before the next):
-8. lm main  — ``forward`` through the slice's kernel (K4 for qwen3-8b at
+   The sparse data are freed.
+8. ooc      — the out-of-core path (DESIGN.md section 9). The star catalog
+              (16,777,216 x 307 f32, halved if the host has under 64 GiB
+              available) made on the card and copied to a host
+              ``ShardedMatrixStore`` whose block height fits a 4096 MiB
+              device budget (20 blocks of 870,128 rows, the tail padded):
+              ``solve_streaming`` for 20 iterations (Gram: one K2a launch
+              per block; K3 counted: blocks x iterations) against the
+              in-memory ``solve`` on the same D (x 1e-4, objective 1e-5),
+              overlap on and off bit for bit, the peak device memory
+              against the budget, and one sweep's streams timed apart
+              (double-buffered, naive, transfer only, host staging,
+              compute only, beside a 1 GiB pinned H2D); K3 timed at the
+              store-block shape. Then a checkpointed solve at 2^20 rows
+              resumed bit for bit (a checkpoint of another store refused),
+              phase 7's CLI data (2^20 x 512 at 1 %) in a sparse store
+              through K6 (one launch per block per iteration) against the
+              in-memory sparse solve, K6 timed at the store-block shape,
+              ``SufficientStats.from_store`` on the lasso at 4,194,304 x
+              200 (one K2b launch per block) with FASTA on it and the
+              Cholesky update / downdate of a 1,000-row block, and
+              ``launch.fit.main --executor streaming`` with checkpoints,
+              then ``--resume``, at 2^20 rows.
+   The LM slices run, qwen3-8b then rwkv6-1.6b, each at full width and
+   depth (f32 weights, random from the seed; each freed before the next):
+9. lm main  — ``forward`` through the slice's kernel (K4 for qwen3-8b at
               B 2 x S 4096, K5 for rwkv6-1.6b at B 8 x T 4096) and
               ``loss_fn``, with the kernel's count set to 0 just before and
               read just after (one launch per layer and forward; K4's
@@ -87,10 +109,10 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               decode steps against ``forward``'s logits; then the same at
               full width, 4 layers and f32 compute with tight bounds
               (K4: all on the FMA route).
-9. serve    — ``repro_torch.launch.serve.main`` at full size (batch 8,
+10. serve   — ``repro_torch.launch.serve.main`` at full size (batch 8,
               prompt 2048, 64 generated tokens): prefill seconds, decode
               ms/step and tok/s.
-10. timing  — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
+11. timing  — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
               bf16, causal) against its plain version and
               ``scaled_dot_product_attention``, and the FMA route on f32
               copies of the same inputs (printed); K5 at the rwkv lm shape
@@ -172,6 +194,12 @@ SOURCES = {
     # K2a on the column split's path, at D_hat's shape
     "K2a_gram_column_split": ("src/repro_torch/kernels/csrc/gram.cu",
                               "src/repro/kernels/gram/gram.py:149"),
+    # K3 and K6 on the out-of-core path, at the store-block shapes
+    "K3_admm_iter_store_block": ("src/repro_torch/kernels/csrc/admm_iter.cu",
+                                 "src/repro/kernels/admm_iter/admm_iter.py:82"),
+    "K6_sparse_admm_iter_store_block": (
+        "src/repro_torch/kernels/csrc/spgram.cu",
+        "src/repro/kernels/spgram/spgram.py:96"),
 }
 
 
@@ -1485,6 +1513,484 @@ def phase_column_split(torch, rt, reps: int, cs):
           "allocated", flush=True)
 
 
+# Out-of-core (DESIGN.md section 9): the star catalog at full width held in
+# a host block store whose block height fits a 4096 MiB device budget (20
+# blocks of 870,128 rows, the tail padded); the paper's data never fit one
+# device. Resume, the sparse store (phase 7's CLI data), the stats path
+# (the lasso at 4,194,304 x 200) and the CLI at 2^20 rows beside it.
+OOC = dict(rows=M_MAIN, n=307, budget_mb=4096, iters=20, min_host_gb=64)
+OOC_RESUME = dict(rows=1 << 20, iters=30, every=10)
+OOC_SPARSE = dict(m=1 << 20, n=512, density=0.01)
+OOC_STATS = dict(nodes=64, rows_per_node=65536, n=200, chol_rows=1000)
+OOC_CLI = dict(nodes=16, rows_per_node=65536, n=200, budget_mb=512,
+               every=10, iters=25)
+# peak device memory of a streamed solve above its baseline: the budget's
+# four D blocks and six block vectors, plus n-sized buffers (G, its factor,
+# x and the d/w/v accumulators, K3's per-CTA partials) and the caching
+# allocator's rounding of each live block up to its 2 MiB granule
+OOC_SLACK = 16 << 20
+
+
+def host_gb() -> float:
+    """MemAvailable of this machine, in GiB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) / 2 ** 20
+    fail("no MemAvailable in /proc/meminfo")
+
+
+def host_store(torch, D2, a, br):
+    """A host ShardedMatrixStore of a card-resident (m, n) D and its labels,
+    copied block by block, each block fingerprinted at write time as
+    ``from_arrays`` does (the hashes in parallel)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.data.store import ShardedMatrixStore, fingerprint_array
+    m = D2.shape[0]
+    blocks = [D2[s:s + br].cpu().numpy() for s in range(0, m, br)]
+    auxs = [a[s:s + br].cpu().numpy() for s in range(0, m, br)]
+    with ThreadPoolExecutor(8) as pool:
+        fps = list(pool.map(fingerprint_array, blocks, auxs))
+    return ShardedMatrixStore(blocks, auxs, br, fps)
+
+
+def rel_norm(torch, u, v) -> float:
+    return float(torch.linalg.norm(u.double() - v.double())
+                 / torch.linalg.norm(v.double()))
+
+
+def phase_ooc(torch, rt, reps: int):
+    """Phase 8: the out-of-core path (module docstring)."""
+    avail = host_gb()
+    rows = OOC["rows"]
+    cut = ""
+    if avail < OOC["min_host_gb"]:
+        rows //= 2
+        cut = f" (halved: under {OOC['min_host_gb']} GiB available)"
+    print(f"ooc: host memory available {avail:.1f} GiB; star catalog at "
+          f"{rows} rows{cut}", flush=True)
+    phase_ooc_dense(torch, rt, reps, rows)
+    phase_ooc_resume(torch)
+    phase_ooc_sparse(torch, rt, reps)
+    phase_ooc_stats(torch)
+    phase_ooc_cli(torch)
+
+
+def phase_ooc_dense(torch, rt, reps: int, rows: int):
+    """The star catalog streamed from a host store through K2a and K3:
+    against the in-memory solve, overlap on and off bit for bit, the peak
+    device memory against the budget, and the sweep's three streams
+    timed apart."""
+    from repro_torch.core.prox import make_logistic
+    from repro_torch.core.unwrapped import UnwrappedADMM
+    from repro_torch.data.synthetic import star_catalog_problem
+    from repro_torch.engine import StreamingEngine, autotune
+    from repro_torch.engine.streaming import block_step_fns
+    from repro_torch.kernels.admm_iter import ops as iter_ops
+    from repro_torch.kernels.gram import ops as gram_ops
+
+    n, iters = OOC["n"], OOC["iters"]
+    budget = OOC["budget_mb"] << 20
+    delta = 10.0
+    t0 = time.perf_counter()
+    prob = star_catalog_problem(SEED, 1, rows)
+    D3, lab = prob.D, prob.labels
+    D2, a = D3.reshape(rows, n), lab.reshape(rows)
+    br = autotune.streaming_block_rows(rows, n, torch.float32,
+                                       budget_bytes=budget)
+    store = host_store(torch, D2, a, br)
+    nb, dbytes = store.nblocks, rows * n * 4
+    print(f"ooc: {store}, {store.nbytes / 1e9:.2f} GB on the host in "
+          f"{time.perf_counter() - t0:.1f} s; block {br} rows "
+          f"({br * n * 4 / 1e9:.3f} GB), pad {nb * br - rows} rows",
+          flush=True)
+    check(nb == -(-rows // br) and store.m == rows,
+          f"ooc store: {nb} blocks of {br} rows hold {rows} rows")
+
+    solver = UnwrappedADMM(loss=make_logistic(), tau=0.1, eps_rel=1e-12,
+                           eps_abs=1e-15)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mem = solver.solve(D3, lab, max_iters=iters, record=True)
+    torch.cuda.synchronize()
+    mem_s = time.perf_counter() - t0
+    check(mem.iters == iters, f"in-memory solve: {mem.iters} = {iters} "
+          f"iterations in {mem_s:.2f} s")
+
+    # K3 at the store-block shape (a full block; the tail is padded to it)
+    Db, ab = D2[:br], a[:br]
+    yb = mem.y.reshape(-1)[:br].contiguous()
+    lb = mem.lam.reshape(-1)[:br].contiguous()
+    x = mem.x
+    timer = Timer(torch, reps)
+    k3 = lambda: iter_ops.admm_iter_full(Db, ab, yb, lb, x, kind="logistic",
+                                         delta=delta)
+    p3 = lambda: iter_ops.admm_iter_plain(Db, ab, yb, lb, x,
+                                          kind="logistic", delta=delta)
+    o1, o2 = k3(), p3()
+    e_yl = max(rel_err(torch, o1[0], o2[0]), rel_err(torch, o1[1], o2[1]))
+    e_dwv = max(float((u - v).abs().max() / v.abs().max().clamp(min=1))
+                for u, v in zip(o1[2:], o2[2:]))
+    same = all(torch.equal(u, v) for u, v in zip(o1, k3()))
+    check(e_yl <= 4e-6 and e_dwv <= 1e-4 and same,
+          f"K3 at the store block {br}x{n}: y/lam err {e_yl:.2e} <= 4e-6, "
+          f"d/w/v err {e_dwv:.2e} <= 1e-4, bitwise repeat")
+    k3_err = max(float((u - v).abs().max()) for u, v in zip(o1, o2))
+    k3_ms, p3_ms = timer(k3), timer(p3)
+    k3_bound = bound(rt, br * n * 4 + 5 * br * 4 + 4 * n * 4,
+                     br * (8 * n + PROX_FLOPS["logistic"]))
+    G64, _ = f64_stats(torch, D2, a)
+    del o1, o2, Db, ab, yb, lb, D2, a, D3, lab, prob
+    print(f"ooc: the in-memory D freed, "
+          f"{free_device_memory(torch):.2f} GB still allocated", flush=True)
+
+    # the streamed solve: counts set to 0 just before, read just after
+    for fn in (gram_ops.gram, gram_ops.gram_and_rhs,
+               iter_ops.admm_iter_full):
+        zero_counts(fn)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    st = solver.solve_streaming(store, max_iters=iters, record=True)
+    torch.cuda.synchronize()
+    st_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    k2a_n, k3_n = gram_ops.gram.launches, iter_ops.admm_iter_full.launches
+    check(k2a_n == nb and gram_ops.gram_and_rhs.launches == 0,
+          f"streamed Gram: K2a launched {k2a_n} times = {nb} blocks")
+    check(st.iters == iters and k3_n == nb * iters,
+          f"streamed solve: K3 launched {k3_n} times = {nb} blocks x "
+          f"{iters} iterations")
+    rt["launches"]["K3_admm_iter_store_block"] = k3_n
+    e_x = rel_norm(torch, st.x, mem.x)
+    ho, hm = st.history.objective.double(), mem.history.objective.double()
+    e_obj = float(((ho - hm).abs() / hm.abs()).max())
+    print(f"ooc streamed: {iters} iterations in {st_s:.2f} s (in memory "
+          f"{mem_s:.2f} s); objective {float(ho[-1]):.9g} (in memory "
+          f"{float(hm[-1]):.9g})", flush=True)
+    check(e_x <= 1e-4, f"streamed x vs the in-memory x: rel {e_x:.2e} "
+          "<= 1e-4")
+    check(e_obj <= 1e-5, f"streamed objective history vs in-memory: rel "
+          f"{e_obj:.2e} <= 1e-5")
+    blocks4 = 4 * br * n * 4
+    print(f"ooc peak device memory above the baseline: {peak / 2**20:.1f} "
+          f"MiB (four D blocks {blocks4 / 2**20:.1f} MiB, budget "
+          f"{budget / 2**20:.0f} MiB)", flush=True)
+    check(peak <= budget + OOC_SLACK,
+          f"streamed peak {peak / 2**20:.1f} MiB <= budget "
+          f"{budget / 2**20:.0f} MiB + {OOC_SLACK / 2**20:.0f} MiB slack")
+    Gs = StreamingEngine(engine=solver.engine).gram_from_store(store)
+    e_g = gram_err(torch, Gs, G64)
+    check(e_g <= 1e-5, f"gram_from_store ({nb} K2a launches) vs a float64 "
+          f"Gram: err {e_g:.2e} <= 1e-5")
+    del Gs, G64
+    off = solver.solve_streaming(store, max_iters=iters, record=True,
+                                 overlap=False)
+    check(all(torch.equal(getattr(st, f), getattr(off, f))
+              for f in ("x", "y", "lam")),
+          "overlap on and off: x, y and lam bit-identical")
+    del off
+
+    # the sweep's three streams apart, one sweep each after a warm-up
+    eng = solver.engine
+    seng = StreamingEngine(engine=eng, prefetch=2)
+    naive = StreamingEngine(engine=eng, prefetch=0)
+    y = seng.host_buffer((rows,), torch.float32)
+    lam = seng.host_buffer((rows,), torch.float32)
+    y.copy_(st.y[0])
+    lam.copy_(st.lam[0])
+    x = st.x
+
+    def sweep_s(se):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        se.sweep(store, x, y, lam)
+        return time.perf_counter() - t
+
+    sweep_s(seng)
+    sweep_s(naive)
+    db_s, nv_s = sweep_s(seng), sweep_s(naive)
+    seng.stage_seconds = 0.0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _, D_b in seng.stream_blocks(store):
+        D_b = None
+    torch.cuda.synchronize()
+    tr_s, stage_s = time.perf_counter() - t, seng.stage_seconds
+    step, _, _ = block_step_fns(eng, True)
+    blk = next(iter(seng.stream_blocks(store)))[1]
+    vec = lambda: torch.zeros(br, device="cuda")
+    yv, lv, av = vec(), vec(), torch.ones(br, device="cuda")
+    from repro_torch.engine.streaming import _zero_sweep
+    acc = _zero_sweep(n, torch.float32, 1, "cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(nb):
+        yn, ln, acc = step(blk, av, yv, lv, x, acc)
+    torch.cuda.synchronize()
+    cp_s = time.perf_counter() - t
+    del blk, yv, lv, av, yn, ln, acc
+    h = torch.empty(2 ** 28, dtype=torch.float32, pin_memory=True)
+    dv = torch.empty(2 ** 28, dtype=torch.float32, device="cuda")
+    h2d_ms = timer(lambda: dv.copy_(h, non_blocking=True))
+    h2d = 2 ** 30 / (h2d_ms / 1e3)
+    del h, dv
+    sweep_bound = max(dbytes / h2d, nb * k3_bound[0] / 1e3)
+    gbs = lambda sec: (f"{dbytes / sec / 1e9:.2f} GB/s" if sec > 0
+                       else "not measured")
+    print(f"ooc sweep of bytes(D) {dbytes / 1e9:.3f} GB in {nb} blocks: "
+          f"double-buffered {db_s:.3f} s ({gbs(db_s)}), naive (prefetch 0) "
+          f"{nv_s:.3f} s ({gbs(nv_s)}); transfer only {tr_s:.3f} s "
+          f"({gbs(tr_s)}), host staging {stage_s:.3f} s ({gbs(stage_s)}), "
+          f"compute only {cp_s:.3f} s ({gbs(cp_s)}); pinned H2D of 1 GiB "
+          f"{h2d_ms:.3f} ms ({h2d / 1e9:.2f} GB/s); sweep bound "
+          f"{sweep_bound:.3f} s (max of bytes(D) / H2D, {nb} x K3's byte "
+          f"floor {k3_bound[0]:.3f} ms)", flush=True)
+    record(rt, "K3_admm_iter_store_block", k3_err, k3_ms, p3_ms, k3_bound,
+           None)
+    del seng, naive, y, lam, st, mem, store
+    print(f"ooc dense: freed, {free_device_memory(torch):.2f} GB still "
+          "allocated", flush=True)
+
+
+def phase_ooc_resume(torch):
+    """An uninterrupted checkpointed streamed solve against one killed at
+    20 iterations and resumed: x, y and lam bit-identical; a checkpoint of
+    another store refused."""
+    import tempfile
+
+    from repro_torch.core.prox import make_logistic
+    from repro_torch.core.unwrapped import UnwrappedADMM
+    from repro_torch.data.synthetic import star_catalog_problem
+    from repro_torch.engine import autotune
+
+    rows, iters, every = (OOC_RESUME[k] for k in ("rows", "iters", "every"))
+    prob = star_catalog_problem(SEED, 1, rows)
+    D2, a = prob.D.reshape(rows, -1), prob.labels.reshape(rows)
+    br = autotune.streaming_block_rows(rows, D2.shape[1], torch.float32)
+    store = host_store(torch, D2, a, br)
+    other = host_store(torch, D2.flip(0), a.flip(0), br)
+    del prob, D2, a
+    solver = UnwrappedADMM(loss=make_logistic(), tau=0.1, eps_rel=1e-12,
+                           eps_abs=1e-15)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        full = solver.solve_streaming(store, max_iters=iters,
+                                      checkpoint_dir=f"{tmp}/a",
+                                      checkpoint_every=every)
+        full_s = time.perf_counter() - t0
+        solver.solve_streaming(store, max_iters=20,
+                               checkpoint_dir=f"{tmp}/b",
+                               checkpoint_every=every)
+        back = solver.solve_streaming(store, max_iters=iters, resume=True,
+                                      checkpoint_dir=f"{tmp}/b",
+                                      checkpoint_every=every)
+        same = all(torch.equal(getattr(full, f), getattr(back, f))
+                   for f in ("x", "y", "lam"))
+        check(full.iters == back.iters == iters and same,
+              f"resume at {rows} rows ({store.nblocks} blocks): 20 + 10 "
+              f"iterations bit-identical to {iters} in one run "
+              f"({full_s:.2f} s)")
+        refused = ""
+        try:
+            solver.solve_streaming(other, max_iters=iters, resume=True,
+                                   checkpoint_dir=f"{tmp}/b")
+        except ValueError as e:
+            refused = str(e)
+        check("different store" in refused,
+              f"a checkpoint of another store is refused ({refused})")
+
+
+def phase_ooc_sparse(torch, rt, reps: int):
+    """Phase 7's CLI data (2^20 x 512 at 1 %) in a sparse store: streamed
+    logistic through K6 (one CTA per store block) against the in-memory
+    sparse solve, and K6 at the store-block shape."""
+    from repro_torch.core.prox import make_logistic
+    from repro_torch.core.unwrapped import UnwrappedADMM
+    from repro_torch.data.sparse import sparse_classification_problem
+    from repro_torch.data.store import ShardedMatrixStore
+    from repro_torch.engine import StreamingEngine
+    from repro_torch.kernels.spgram import ops as sp_ops
+
+    sp = OOC_SPARSE
+    prob = sparse_classification_problem(SEED, sp["m"], sp["n"],
+                                         sp["density"])
+    D, lab = prob.D, prob.labels
+    m, n = D.shape
+    t0 = time.perf_counter()
+    store = ShardedMatrixStore.from_sparse(D, lab)
+    print(f"ooc sparse: {store} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    k6 = sp_ops.sparse_admm_iter_full
+    solver = UnwrappedADMM(loss=make_logistic(), tau=0.1)
+    mem = solver.solve(D, lab, max_iters=ITERS)
+    zero_counts(k6)
+    t0 = time.perf_counter()
+    st = solver.solve_streaming(store, max_iters=ITERS)
+    torch.cuda.synchronize()
+    st_s = time.perf_counter() - t0
+    launches = k6.launches
+    check(launches == store.nblocks * st.iters,
+          f"sparse store: K6 launched {launches} times = "
+          f"{store.nblocks} blocks x {st.iters} iterations")
+    rt["launches"]["K6_sparse_admm_iter_store_block"] = launches
+    e_x = rel_norm(torch, st.x, mem.x)
+    check(e_x <= 1e-4 and abs(st.iters - mem.iters) <= 5,
+          f"sparse store x vs in-memory: rel {e_x:.2e} <= 1e-4; "
+          f"iterations {st.iters} vs {mem.iters} (within 5)")
+    seng = StreamingEngine(engine=solver.engine)
+    y = seng.host_buffer((m,), torch.float32)
+    lam = seng.host_buffer((m,), torch.float32)
+    seng.sweep(store, st.x, y, lam)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seng.sweep(store, st.x, y, lam)
+    sw_s = time.perf_counter() - t0
+    print(f"ooc sparse: {st.iters} iterations in {st_s:.2f} s with the "
+          f"host Gram; one sweep of {store.nblocks} blocks {sw_s:.3f} s "
+          f"({sw_s / store.nblocks * 1e3:.3f} ms a block, "
+          f"{store.nbytes / sw_s / 1e9:.2f} GB/s of {store.nbytes / 1e9:.3f}"
+          f" GB)", flush=True)
+    # K6 at the store-block shape: one block (nb 1), random iterates
+    Bh, ah = store.block(0, padded=True)
+    B = Bh.to("cuda")
+    a_b = torch.from_numpy(ah).cuda()
+    bm = B.m
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    yb, lb = (torch.randn(bm, generator=g, device="cuda") for _ in range(2))
+    x = st.x
+    k6_fn = lambda: k6(B, a_b, yb, lb, x, kind="logistic", delta=10.0)
+    p6_fn = lambda: sp_ops.sparse_admm_iter_plain(B, a_b, yb, lb, x,
+                                                  kind="logistic",
+                                                  delta=10.0)
+    o1, o2, op = k6_fn(), k6_fn(), p6_fn()
+    e_yl, e_dwv = k6_errs(torch, sp_ops, B, yb, o1, op)
+    same = all(torch.equal(u, v) for u, v in zip(o1, o2))
+    check(e_yl <= 4e-6 and e_dwv <= K6_DWV_SMALL and same,
+          f"K6 at the store block ({bm}x{n}, nb 1, kp {B.kp}, kc {B.kc}): "
+          f"y/lam err {e_yl:.2e} <= 4e-6, d/w/v err {e_dwv:.2e} <= "
+          f"{K6_DWV_SMALL:g} of sum |terms|, bitwise repeat")
+    err = max(float((u - v).abs().max()) for u, v in zip(o1, op))
+    timer = Timer(torch, reps)
+    nnz = int((B.values != 0).sum())
+    tb = bound(rt, B.nbytes + 5 * bm * 4 + 4 * n * 4,
+               8 * nnz + bm * PROX_FLOPS["logistic"])
+    record(rt, "K6_sparse_admm_iter_store_block", err, timer(k6_fn),
+           timer(p6_fn), tb, None)
+    del o1, o2, op, B, a_b, yb, lb, st, mem, D, lab, prob, store, seng
+    free_device_memory(torch)
+
+
+def phase_ooc_stats(torch):
+    """SufficientStats.from_store on the lasso at 4,194,304 x 200 (one K2b
+    launch per block), FASTA on it, and the Cholesky rank-k update and
+    downdate of a 1,000-row block against a fresh factor."""
+    from repro_torch.core.fasta import transpose_reduction_lasso
+    from repro_torch.core.gram import gram_factor
+    from repro_torch.data.synthetic import lasso_problem
+    from repro_torch.engine import autotune
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.launch.fit import lasso_kkt_gap
+    from repro_torch.service.stats import (
+        SufficientStats,
+        chol_downdate,
+        chol_update,
+    )
+
+    cfg = OOC_STATS
+    n = cfg["n"]
+    prob = lasso_problem(SEED, cfg["nodes"], cfg["rows_per_node"], n,
+                         heterogeneity=1.0)
+    D2, b = prob.D.reshape(-1, n), prob.b.reshape(-1)
+    m, mu = D2.shape[0], float(prob.mu)
+    br = autotune.streaming_block_rows(m, n, torch.float32)
+    store = host_store(torch, D2, b, br)
+    zero_counts(gram_ops.gram)
+    zero_counts(gram_ops.gram_and_rhs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = SufficientStats.from_store(store)
+    torch.cuda.synchronize()
+    st_s = time.perf_counter() - t0
+    k2b = gram_ops.gram_and_rhs.launches
+    check(k2b == store.nblocks and gram_ops.gram.launches == 0
+          and stats.fingerprint == store.fingerprint
+          and stats.fully_labeled and stats.rows == m,
+          f"stats from the store ({store.nblocks} blocks of {br} rows): K2b "
+          f"launched {k2b} times, fingerprint folded, {st_s:.2f} s")
+    G64, c64 = f64_stats(torch, D2, b)
+    e_g = gram_err(torch, stats.G, G64)
+    e_c = rel_err(torch, stats.c, c64)
+    check(e_g <= 1e-5 and e_c <= 1e-5, f"stats (G, c) vs float64: "
+          f"{e_g:.2e}, {e_c:.2e} <= 1e-5")
+    t0 = time.perf_counter()
+    fr = transpose_reduction_lasso(stats.G, stats.c, mu, iters=LASSO_ITERS)
+    torch.cuda.synchronize()
+    fa_s = time.perf_counter() - t0
+    viol, _ = lasso_kkt_gap(D2, b, fr.x, mu)
+    check(viol <= 1e-3 * mu, f"stats-path lasso: FASTA {int(fr.iters)} "
+          f"iterations in {fa_s:.3f} s, KKT violation {viol:.3g} <= 1e-3 mu "
+          f"({1e-3 * mu:.3g})")
+    k = cfg["chol_rows"]
+    B, bb = D2[:k], b[:k]
+    L = stats.factor()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L_up = chol_update(L, B)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    L_fresh = gram_factor(stats.update(B, bb).G)
+    t0 = time.perf_counter()
+    L_dn = chol_downdate(L_up, B)
+    torch.cuda.synchronize()
+    dn_s = time.perf_counter() - t0
+    rl = lambda u, v: float((u - v).abs().max() / v.abs().max())
+    e_up, e_dn = rl(L_up, L_fresh), rl(L_dn, L)
+    check(e_up <= 1e-4 and e_dn <= 1e-4,
+          f"rank-{k} Cholesky update {e_up:.2e} ({up_s:.2f} s) and "
+          f"downdate {e_dn:.2e} ({dn_s:.2f} s) vs a fresh factor <= 1e-4")
+    del D2, b, prob, store, stats, G64, c64, L, L_up, L_dn, L_fresh, B, bb
+    free_device_memory(torch)
+
+
+def phase_ooc_cli(torch):
+    """``launch.fit.main --executor streaming`` at 2^20 rows for 25
+    iterations with a checkpoint every 10, then the same command with
+    ``--resume`` (from iteration 20): both return, with the same x."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import fit as fit_cli
+
+    c = OOC_CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--executor", "streaming", "--device-budget-mb",
+                str(c["budget_mb"]), "--checkpoint-dir", f"{tmp}/ckpt",
+                "--checkpoint-every", str(c["every"]), "--nodes",
+                str(c["nodes"]), "--rows-per-node", str(c["rows_per_node"]),
+                "--features", str(c["n"]), "--iters", str(c["iters"]),
+                "--seed", str(SEED)]
+        outs = []
+        for extra in ([], ["--resume"]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = fit_cli.main(argv + extra)
+            secs = time.perf_counter() - t0
+            for line in buf.getvalue().strip().splitlines():
+                print(f"cli streaming{' --resume' if extra else ''}: "
+                      f"{line}", flush=True)
+            outs.append((res, secs))
+        (r1, s1), (r2, s2) = outs
+        check(r1.x.is_cuda and bool(torch.isfinite(r1.x).all())
+              and torch.equal(r1.x, r2.x),
+              f"cli --executor streaming at {c['nodes'] * c['rows_per_node']}"
+              f" rows: {r1.iters} iterations ({s1:.1f} s), then --resume "
+              f"({s2:.1f} s): the same x")
+    free_device_memory(torch)
+
+
 # K4's tensor-core kernel against the plain version with P rounded to bf16
 # as the kernel rounds it: what is left is the output's own bf16 rounding
 # (one ulp, at most 2^-7 |o|, where the two f32 results straddle a rounding
@@ -2080,6 +2586,7 @@ def main(argv=None):
           "allocated", flush=True)
     phase_problems(torch, rt, REPS)
     phase_sparse(torch, rt, REPS)
+    phase_ooc(torch, rt, REPS)
     for arch, spec in LM.items():
         sh = spec["shapes"]["smoke" if args.lm_smoke else "full"]
         phase_lm(torch, rt, arch, sh, args.lm_smoke)

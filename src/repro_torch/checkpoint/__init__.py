@@ -1,0 +1,4 @@
+"""Fault-tolerant checkpoints (``manager.CheckpointManager``)."""
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

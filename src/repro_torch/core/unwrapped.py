@@ -22,7 +22,8 @@ recovers the single-node Alg. 1. ``D`` may also be a flat
 engine's sparse body (K6 on the card), with the Gram set up on the host,
 and y / lam come back as (1, m). ``device`` (``"cuda"`` by default) is
 where the solve runs; inputs elsewhere are moved there once, and asking for
-``cuda`` without a GPU raises. The out-of-core driver is ROADMAP item 7.
+``cuda`` without a GPU raises. ``solve_streaming`` is the out-of-core
+driver over a host block store (``engine/streaming.py``).
 """
 from __future__ import annotations
 
@@ -238,9 +239,40 @@ class UnwrappedADMM:
             reg=reg, checkpoint_dir=checkpoint_dir,
             checkpoint_every=checkpoint_every, resume=resume, obs=obs)
 
-    def solve_streaming(self, store, **kwargs):
-        raise NotImplementedError("the out-of-core streaming solve is not "
-                                  "ported yet (ROADMAP item 7)")
+    # -- out-of-core driver: D streams from a host/disk block store --------
+    def solve_streaming(
+        self, store, max_iters: int = 500, x0=None, record: bool = False,
+        overlap: bool = True, prefetch: int = 2,
+        device_dtype: Optional[str] = None,
+        checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+        resume: bool = False, obs=None,
+    ) -> ADMMResult:
+        """``solve`` for data that does not fit device memory: ``store``
+        is a :class:`repro_torch.data.store.ShardedMatrixStore` (host RAM
+        or memory-mapped) and every pass — Gram setup, each iteration's
+        fused body — streams row blocks through pinned staging slots and a
+        copy stream, overlapped with the compute (DESIGN.md section 9). The
+        m-sized iterates (y, lam) stay on the host, so device memory is
+        bounded by a few blocks regardless of m. Same stopping rule and
+        warm-start semantics as ``solve``; ``overlap=False`` degrades to
+        the naive synchronous transfer loop (the benchmark baseline);
+        ``device_dtype`` casts the blocks at staging time.
+
+        ``checkpoint_dir`` + ``checkpoint_every=K`` persist the loop state
+        (x, y, lam, d, iter) every K iterations through
+        :class:`repro_torch.checkpoint.CheckpointManager`; ``resume=True``
+        restores the newest step and continues bitwise after a kill (the
+        checkpoint refuses to resume against a store with a different
+        content fingerprint).
+        """
+        from repro_torch.engine.streaming import solve_streaming as _solve
+        return _solve(self, store, max_iters=max_iters,
+                      x0=self._to_device(x0), record=record,
+                      overlap=overlap, prefetch=prefetch,
+                      device_dtype=device_dtype,
+                      checkpoint_dir=checkpoint_dir,
+                      checkpoint_every=checkpoint_every, resume=resume,
+                      obs=obs)
 
     # -- sparse drivers: the same loop over a BlockCSR -----------------------
     # The sparse Gram is a HOST pass (scipy's CSR matmul,

@@ -235,6 +235,20 @@ class BlockCSR:
                 f"device={self.device})")
 
 
+def host_blocks(bcsr: BlockCSR):
+    """Per-block host numpy arrays ``(indices, values, col_indices,
+    col_values)`` — the store's write path. numpy has no bf16 here, so bf16
+    values raise (store the f32 matrix; the streaming engine casts at
+    staging time)."""
+    if bcsr.dtype == torch.bfloat16:
+        raise TypeError("bfloat16 values have no numpy dtype to store; "
+                        "store the float32 matrix and stream it with "
+                        "device_dtype='bfloat16'")
+    return tuple(a.detach().cpu().numpy() for a in
+                 (bcsr.indices, bcsr.values, bcsr.col_indices,
+                  bcsr.col_values))
+
+
 def _host_values(t: Tensor):
     """(numpy copy on the host, original dtype); numpy has no bf16, so
     bf16 goes through f32 (exact)."""

@@ -69,6 +69,9 @@ GRAM_CTAS = 4 * 3 * SM_COUNT       # four waves of three K2a CTAs per SM
 CACHE_BUDGET = 2 * 1024 * 1024
 # f32 bytes of one upcast row block for torch-op loops over a CUDA D.
 DEVICE_BLOCK_BUDGET = 256 * 1024 * 1024
+# Default device-memory budget of the out-of-core streaming path (DESIGN.md
+# section 9): the D blocks in flight (the reference's value).
+STREAM_BUDGET = 256 * 1024 * 1024
 
 
 class IterGrid(NamedTuple):
@@ -183,6 +186,35 @@ def gram_splits(m: int, n: int, dtype) -> int:
     return CACHE[key][0]
 
 
+def _size_and_name(dtype):
+    """(bytes per element, name) of a torch or numpy dtype (or its name)."""
+    if isinstance(dtype, torch.dtype):
+        return _dsize(dtype), _name(dtype)
+    return np.dtype(dtype).itemsize, np.dtype(dtype).name
+
+
+def streaming_block_rows(m: int, n: int, dtype,
+                         budget_bytes: int = None) -> int:
+    """Store block height for the out-of-core streaming path (DESIGN.md
+    section 9), the reference's rule: the tallest block whose worst-case
+    in-flight set fits the device-memory budget. At the default prefetch
+    depth of 2 the pipeline holds FOUR D blocks at once (one computing,
+    two staged, one in copy; ``engine/streaming.py``), plus the per-row
+    vector traffic. ``dtype`` is a torch or numpy dtype (or its name)."""
+    budget = int(budget_bytes) if budget_bytes else STREAM_BUDGET
+    dsize, name = _size_and_name(dtype)
+    key = ("stream", int(m), int(n), name, budget)
+    if key not in CACHE:
+        rows = budget // max(1, 4 * n * dsize + 6 * 4)
+        cap = _row_cap(m, 8)
+        # prefer >= 128-row blocks, but honor a tight budget (huge n /
+        # small budget) down to the 8-row tile floor rather than
+        # silently overshooting the caller's device memory
+        lo = min(128, cap) if rows >= 128 else 8
+        CACHE[key] = (_clamp_multiple(rows, 8, lo, cap),)
+    return CACHE[key][0]
+
+
 def sparse_block_m(m: int, n: int, kp: int, dtype) -> int:
     """Row-block height for the padded block-CSR path (DESIGN.md section
     10), the reference's rule and budget, so that a ``BlockCSR`` has the
@@ -197,10 +229,7 @@ def sparse_block_m(m: int, n: int, kp: int, dtype) -> int:
     largest per-column count, and that Poisson slack shrinks as blocks
     grow. K6 (``csrc/spgram.cu``) takes any height."""
     kp = max(int(kp), 1)
-    if isinstance(dtype, torch.dtype):
-        dsize, name = _dsize(dtype), _name(dtype)
-    else:
-        dsize, name = np.dtype(dtype).itemsize, np.dtype(dtype).name
+    dsize, name = _size_and_name(dtype)
     key = ("sparse", int(m), int(n), kp, name)
     if key not in CACHE:
         rows = CACHE_BUDGET // max(1, 2 * kp * (4 + dsize) + 20)

@@ -1,8 +1,8 @@
 """repro_torch.exec — the SolveExecutor contract, the one shared ADMM
 solve loop (``solve_with_executor``, DESIGN.md section 14) and
 problems-on-executors. The local
-topology is ported; streaming, shard_map and cluster are ROADMAP items
-7-9."""
+and streaming (out-of-core) topologies are ported; shard_map and cluster
+are ROADMAP items 8 and 9."""
 from repro_torch.exec.base import (
     Regularizer,
     SolveExecutor,
@@ -21,6 +21,7 @@ from repro_torch.exec.problems import (
     make_problem,
     synth_data,
 )
+from repro_torch.exec.streaming import StreamingExecutor
 
 __all__ = [
     "EXECUTORS",
@@ -28,6 +29,7 @@ __all__ = [
     "LocalExecutor",
     "Regularizer",
     "SolveExecutor",
+    "StreamingExecutor",
     "composite_x_update",
     "fit_on_executor",
     "make_executor",

@@ -11,9 +11,11 @@ data, return G = D^T D), ``init(x0)`` (establish (y, lam), return the
 warm-start d) and ``sweep(x, k)`` (one fused pass, returning a
 :class:`~repro_torch.engine.streaming.SweepResult`).
 
-Not ported yet: checkpoint/resume (needs a port of
-``checkpoint/manager.py``, ROADMAP item 7) and observability (``repro.obs``
-may not be imported; ROADMAP item 10). Asking for either raises.
+Small hooks split checkpoint ownership: the backend owns the SHAPES of
+its state, the driver the CADENCE (every ``checkpoint_every``
+iterations through :class:`~repro_torch.checkpoint.CheckpointManager`) and
+the resume validation. Not ported yet: observability (``repro.obs`` may
+not be imported; ROADMAP item 10); asking for it raises.
 """
 from __future__ import annotations
 
@@ -109,6 +111,11 @@ class SolveExecutor(abc.ABC):
 
     name: str = "?"                  # executor label
     backend: str = "?"               # resolved engine backend
+    checkpoint_kind: str = "solve"   # checkpoint `extra["kind"]` tag
+    kind_label: str = "executor"     # human label in restore errors
+    restore_fallback: bool = False   # CheckpointManager fallback scan
+    error_cls = ValueError           # restore-refusal exception type
+    status: str = "ok"               # backends may set "degraded"
 
     m: int
     n: int
@@ -126,12 +133,50 @@ class SolveExecutor(abc.ABC):
         None is the cold start (y = lam = 0 without touching D)."""
 
     @abc.abstractmethod
-    def sweep(self, x: Tensor, k: int) -> SweepResult:
-        """One fused pass over all rows for iteration ``k`` (1-based)."""
+    def sweep(self, x: Tensor, k: int) -> Optional[SweepResult]:
+        """One fused pass over all rows for iteration ``k`` (1-based):
+        update the backend's (y, lam), return the reductions. ``None``
+        stops the solve with ``status='degraded'``."""
 
+    # -- shared-driver hooks (defaults fit most backends) -------------------
     def zero_x(self) -> Tensor:
         shape = (self.n,) if self.ycols == 1 else (self.n, self.ycols)
         return torch.zeros(shape, dtype=self.acc, device=self.device)
+
+    def pad_objective(self) -> float:
+        return 0.0
+
+    def extra_record(self) -> dict:
+        """Backend-specific keys merged into each telemetry record."""
+        return {}
+
+    def finish(self, iters: int, converged: bool):
+        """Post-loop bookkeeping (cluster status accounting)."""
+
+    # -- checkpoint ownership: backend owns SHAPES, driver owns CADENCE -----
+    def state_like(self) -> dict:
+        yshape = (self.m,) if self.ycols == 1 else (self.m, self.ycols)
+        z = torch.zeros(yshape, dtype=self.acc, device=self.device)
+        return {"x": self.zero_x(), "y": z, "lam": z, "d": self.zero_x()}
+
+    def checkpoint_extra(self) -> dict:
+        return {}
+
+    def verify_checkpoint(self, extra: dict):
+        """Raise ``error_cls`` when the checkpoint belongs elsewhere."""
+
+    def restore_state(self, k: int, tree: dict) -> Tensor:
+        """Adopt restored (y, lam); return the restored d."""
+        raise self.error_cls(
+            f"{self.name} executor does not support resume")
+
+    def state_arrays(self, k: int) -> Optional[dict]:
+        """{"y": ..., "lam": ...} at iteration k, or None to skip this
+        checkpoint round."""
+        return None
+
+    def on_checkpointed(self, k: int, state: dict):
+        """A checkpoint at k was committed."""
 
     @abc.abstractmethod
     def final_iterates(self) -> Tuple[Tensor, Tensor]:
@@ -153,17 +198,14 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
     """Unwrapped ADMM (paper Alg. 1/2) over any :class:`SolveExecutor`:
     the x-update (Cholesky on the cached Gram, or the composite
     prox-gradient when ``reg`` is given), Boyd's stopping rule, warm
-    starts and history. Returns an
+    starts, checkpoint cadence + resume validation, the pad-objective
+    correction and history. Returns an
     :class:`~repro_torch.core.unwrapped.ADMMResult`.
 
     The per-iteration scalars reach the host in ONE transfer: the norms
     are taken on the device and stacked, then ``.tolist()`` syncs once."""
     from repro_torch.core.unwrapped import ADMMHistory, ADMMResult
 
-    if checkpoint_dir is not None or checkpoint_every or resume:
-        raise NotImplementedError(
-            "checkpoint/resume needs a port of checkpoint/manager.py "
-            "(ROADMAP item 7)")
     if obs is not None:
         raise NotImplementedError(
             "observability (repro.obs) is not ported yet (ROADMAP item 10)")
@@ -178,9 +220,29 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
         L = None
         lmax = power_lmax(G)
 
+    manager = None
+    if checkpoint_dir is not None:
+        from repro_torch.checkpoint.manager import CheckpointManager
+        manager = CheckpointManager(checkpoint_dir)
+
     k = 0
-    d = ex.init(x0)
-    x = ex.zero_x()
+    ex.resume_iter = 0
+    if manager is not None and resume and manager.latest_step() is not None:
+        tree, extra = manager.restore(ex.state_like(),
+                                      fallback=ex.restore_fallback)
+        if extra.get("kind") != ex.checkpoint_kind:
+            raise ex.error_cls(
+                f"not a {ex.kind_label} checkpoint: {extra}")
+        ex.verify_checkpoint(extra)
+        k = int(extra["iter"])
+        ex.resume_iter = k
+        d = ex.restore_state(k, tree)
+        x = tree["x"]            # returned as-is if no iterations remain
+    else:
+        d = ex.init(x0)
+        x = ex.zero_x()
+
+    pad_obj = ex.pad_objective()
     objs, rs, ss = [], [], []
     k_conv = -1
     while k < max_iters:
@@ -190,6 +252,8 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
             x = composite_x_update(G, lmax, d, x, tau, reg.prox,
                                    reg.inner_iters)
         sw = ex.sweep(x, k + 1)
+        if sw is None:           # degraded stop: best-so-far x
+            break
         d = sw.d
         parts = [torch.sqrt(sw.r_sq), torch.linalg.norm(sw.w),
                  torch.sqrt(sw.dx_sq), torch.sqrt(sw.y_sq),
@@ -206,7 +270,7 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
         eps_dual = math.sqrt(n_eff) * eps_abs + eps_rel * tau * vals[4]
         k += 1
         if record:
-            obj = vals[5]
+            obj = vals[5] - pad_obj
             if rho:
                 obj += 0.5 * rho * vals[6]
             if reg is not None:
@@ -214,10 +278,20 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
             objs.append(obj)
             rs.append(r)
             ss.append(s)
+        if manager is not None and checkpoint_every \
+                and k % checkpoint_every == 0:
+            state = ex.state_arrays(k)
+            if state is not None:
+                manager.save(k, {"x": x, "y": state["y"],
+                                 "lam": state["lam"], "d": d},
+                             extra={"kind": ex.checkpoint_kind, "iter": k,
+                                    **ex.checkpoint_extra()})
+                ex.on_checkpointed(k, state)
         if r <= eps_pri and s <= eps_dual:
             k_conv = k - 1
             break
 
+    ex.finish(k, k_conv >= 0)
     history = None
     if record:
         acc = ex.acc

@@ -19,6 +19,8 @@ Tensor = torch.Tensor
 
 class LocalExecutor(SolveExecutor):
     name = "local"
+    checkpoint_kind = "local_solve"
+    kind_label = "local"
 
     def __init__(self, engine, D: Tensor, aux: Optional[Tensor] = None,
                  gram_block_rows: Optional[int] = None):
@@ -73,6 +75,15 @@ class LocalExecutor(SolveExecutor):
         self._y, self._lam, sw = fused_step(
             self.engine, self._Dres, self._aux, self._y, self._lam, x)
         return sw
+
+    # -- checkpointing (driver-owned cadence) -------------------------------
+    def state_arrays(self, k: int) -> dict:
+        return {"y": self._y, "lam": self._lam}
+
+    def restore_state(self, k: int, tree: dict) -> Tensor:
+        self._y = tree["y"].to(device=self.device, dtype=self.acc)
+        self._lam = tree["lam"].to(device=self.device, dtype=self.acc)
+        return tree["d"].to(self.device)
 
     def final_iterates(self):
         if self._stack is None:

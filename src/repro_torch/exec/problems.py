@@ -5,8 +5,8 @@ A problem is (picklable loss spec, tau, rho, optional x-space regularizer
 factory) — nothing topology-specific. ``fit_on_executor`` builds the
 :class:`~repro_torch.exec.base.SolveExecutor` for the requested topology
 and hands it to the one shared solve loop, ``solve_with_executor``. The
-local topology is ported; streaming, shard_map and cluster are ROADMAP
-items 7, 8 and 9 and raise.
+local and streaming topologies are ported; shard_map and cluster are
+ROADMAP items 8 and 9 and raise.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from repro_torch.exec.base import (
 
 EXECUTORS = ("local", "streaming", "shard_map", "cluster")
 # executor -> ROADMAP item that ports it
-EXECUTOR_ITEMS = {"streaming": 7, "shard_map": 8, "cluster": 9}
+EXECUTOR_ITEMS = {"shard_map": 8, "cluster": 9}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,20 +95,32 @@ def make_executor(kind: str, prob: ExecProblem, D, aux=None,
                   backend: str = "auto", device="cuda",
                   **opts) -> SolveExecutor:
     """Build the executor for one topology over in-memory (m, n) data
-    (numpy or tensors), on ``device``. ``cluster`` is not built here, as
-    in the reference: it owns worker processes."""
-    if kind in ("streaming", "shard_map"):
+    (numpy or tensors), on ``device``. ``streaming`` stages the data into
+    a host block store (``opts``: ``store=`` a ready
+    :class:`~repro_torch.data.store.ShardedMatrixStore`, or ``block_rows=``
+    for the one built here). ``cluster`` is not built here, as in the
+    reference: it owns worker processes."""
+    if kind == "shard_map":
         raise NotImplementedError(
             f"the {kind} executor is not ported yet (ROADMAP item "
             f"{EXECUTOR_ITEMS[kind]})")
-    if kind != "local":
+    if kind not in ("local", "streaming"):
         raise ValueError(f"unknown executor kind {kind!r}; "
                          f"expected one of {EXECUTORS}")
     from repro_torch.engine import IterationEngine
-    from repro_torch.exec.local import LocalExecutor
     dev = resolve_device(device)
     engine = IterationEngine(loss=prob.loss(), tau=prob.tau,
                              backend=backend, device=str(dev))
+    if kind == "streaming":
+        from repro_torch.data.store import ShardedMatrixStore
+        from repro_torch.exec.streaming import StreamingExecutor
+        store = opts.get("store")
+        if store is None:
+            br = opts.get("block_rows")
+            store = ShardedMatrixStore.from_arrays(
+                D, aux, **({} if br is None else {"block_rows": br}))
+        return StreamingExecutor(engine, store)
+    from repro_torch.exec.local import LocalExecutor
     D = on_device(D, dev)
     D2 = D.reshape(-1, D.shape[-1])
     return LocalExecutor(engine, D2[None],

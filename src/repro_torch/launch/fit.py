@@ -1,5 +1,5 @@
 """GLM fitting launcher — the paper's end-to-end fitting program; port of
-``repro/launch/fit.py`` for ``--executor local``.
+``repro/launch/fit.py`` for ``--executor local`` and ``streaming``.
 
 ``python -m repro_torch.launch.fit --problem lasso --nodes 320
      --rows-per-node 50000 --features 200 --heterogeneous``
@@ -17,13 +17,23 @@ sums over row blocks, without a host copy of D.
 ``sparse_lasso_problem`` / ``sparse_classification_problem``, N x m_i rows
 at Bernoulli density p): ``--sparse-format blockcsr`` (the default) solves
 over the padded block-CSR (K6 on the card) and prints O(nnz) result lines;
-``dense`` densifies and takes the dense path. The JAX CLI's other flags
-exit with the ROADMAP item that ports them.
+``dense`` densifies and takes the dense path.
+
+``--executor streaming`` (``--streaming`` is its deprecated alias) is the
+out-of-core path (DESIGN.md section 9): the data are staged into a host
+``ShardedMatrixStore`` (memory-mapped under ``--store-dir``) whose block
+height fits ``--device-budget-mb``, and the solve streams the blocks
+through the fused body; ``--checkpoint-dir`` / ``--checkpoint-every`` /
+``--resume`` checkpoint it and resume it bit for bit. The lasso takes
+the stats path there: ``SufficientStats.from_store`` (one K2b launch per
+block on the card), then FASTA on the Gram. The JAX CLI's other flags exit
+with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import argparse
 import time
+import warnings
 
 import torch
 
@@ -37,11 +47,9 @@ from repro_torch.exec.problems import EXECUTOR_ITEMS
 
 # flag -> ROADMAP item that ports it
 NOT_PORTED = {
-    "--workers": 9, "--multi-device": 8, "--streaming": 7,
-    "--device-budget-mb": 7, "--store-dir": 7, "--cluster": 9,
+    "--workers": 9, "--multi-device": 8, "--cluster": 9,
     "--cluster-compress": 9, "--cluster-staleness": 9, "--chaos-seed": 9,
     "--chaos-spec": 9, "--min-quorum": 9, "--iter-deadline": 9,
-    "--checkpoint-dir": 7, "--checkpoint-every": 7, "--resume": 7,
     "--obs-dir": 10,
 }
 BLOCK_ROWS = 1 << 20
@@ -92,21 +100,72 @@ def _admm_params(problem):
     return make_hinge(1.0), 1.0, 0.5                  # svm, C = 1
 
 
+def _fit_streaming(args, D, aux, mu, dev):
+    """Out-of-core fit: stage into a host block store, stream the solve.
+    ``D`` may be dense node-stacked or a BlockCSR (nnz-scaled store)."""
+    from repro_torch.core.unwrapped import UnwrappedADMM
+    from repro_torch.data.sparse import BlockCSR
+    from repro_torch.data.store import ShardedMatrixStore
+    from repro_torch.engine import autotune
+    from repro_torch.service.stats import SufficientStats
+
+    budget = args.device_budget_mb * 2 ** 20
+    if isinstance(D, BlockCSR):
+        # the pipeline holds up to 4 blocks in flight (DESIGN.md section
+        # 9): re-block when 4x the per-block bytes exceed the budget
+        per_block = D.nbytes // max(D.nblocks, 1)
+        if 4 * per_block > budget:
+            bytes_per_row = max(per_block // D.block_m, 1)
+            D = D.reblock(max(8, budget // (4 * bytes_per_row)))
+        store = ShardedMatrixStore.from_sparse(D, aux)
+    else:
+        n = D.shape[-1]
+        D2 = D.reshape(-1, n)
+        br = autotune.streaming_block_rows(D2.shape[0], n, D.dtype,
+                                           budget_bytes=budget)
+        store = ShardedMatrixStore.from_arrays(D2, aux.reshape(-1),
+                                               block_rows=br)
+    if args.store_dir:
+        store = ShardedMatrixStore.open(store.save(args.store_dir))
+    print(f"store: {store} (budget {args.device_budget_mb} MiB "
+          f"-> {store.nblocks} blocks)", flush=True)
+    if args.problem == "lasso":
+        # quadratic data term: one stats pass over the store, then FASTA
+        # on the cached Gram; no iteration touches the rows again
+        from repro_torch.core.fasta import transpose_reduction_lasso
+        stats = SufficientStats.from_store(store, device=dev)
+        fr = transpose_reduction_lasso(stats.G, stats.c, mu,
+                                       iters=args.iters)
+        return FitResult(fr.x, int(fr.iters), fr.objective, "transpose",
+                         "lasso")
+    if args.problem not in ("logistic", "svm"):
+        raise SystemExit(f"--executor streaming does not support "
+                         f"{args.problem!r} "
+                         f"(needs a separable ProxLoss on Dx)")
+    loss, rho, tau = _admm_params(args.problem)
+    solver = UnwrappedADMM(loss=loss, tau=tau, rho=rho, device=dev)
+    res = solver.solve_streaming(store, max_iters=args.iters, record=True,
+                                 checkpoint_dir=args.checkpoint_dir,
+                                 checkpoint_every=args.checkpoint_every,
+                                 resume=args.resume)
+    return FitResult(res.x, int(res.iters), res.history.objective,
+                     "transpose", args.problem)
+
+
 def _fit_sparse(args, bcsr, aux, mu, dev):
     """In-memory sparse fit over the engine's block-CSR body."""
     from repro_torch.core.fasta import transpose_reduction_lasso
     from repro_torch.core.unwrapped import UnwrappedADMM
-    from repro_torch.engine import gram_stats
+    from repro_torch.service.stats import SufficientStats
 
     if args.method != "transpose":
         raise SystemExit("--density with blockcsr supports --method "
                          "transpose only (consensus is a dense-data path)")
     print(f"sparse: {bcsr}", flush=True)
     if args.problem == "lasso":
-        # the reference goes through service/stats.py's SufficientStats
-        # (ROADMAP item 10); the same (G, c) come from gram_stats
-        G, c = gram_stats(bcsr, aux)
-        fr = transpose_reduction_lasso(G, c, mu, iters=args.iters)
+        stats = SufficientStats.from_data(bcsr, aux)
+        fr = transpose_reduction_lasso(stats.G, stats.c, mu,
+                                       iters=args.iters)
         return FitResult(fr.x, int(fr.iters), fr.objective, "transpose",
                          "lasso")
     if args.problem not in ("logistic", "svm"):
@@ -151,8 +210,11 @@ def main(argv=None):
                     choices=["lasso", "logistic", "svm", "sparse_logistic"])
     ap.add_argument("--method", default="transpose",
                     choices=["transpose", "consensus", "fasta"])
-    ap.add_argument("--executor", default="local",
-                    choices=["local", "streaming", "shard_map", "cluster"])
+    ap.add_argument("--executor", default=None,
+                    choices=["local", "streaming", "shard_map", "cluster"],
+                    help="solve topology: in-memory local (default) or "
+                         "out-of-core streaming (shard_map and cluster "
+                         "are not ported yet)")
     ap.add_argument("--nodes", type=int, default=8)
     ap.add_argument("--rows-per-node", type=int, default=5000)
     ap.add_argument("--features", type=int, default=200)
@@ -169,6 +231,21 @@ def main(argv=None):
                     choices=["blockcsr", "dense"],
                     help="with --density: run the padded block-CSR path "
                          "(O(nnz) per pass) or densify for comparison")
+    ap.add_argument("--streaming", action="store_true",
+                    help="deprecated alias for --executor streaming")
+    ap.add_argument("--device-budget-mb", type=int, default=256,
+                    help="device-memory budget of the D blocks in flight "
+                         "for --executor streaming")
+    ap.add_argument("--store-dir", default=None,
+                    help="persist the block store here (memory-mapped "
+                         "reopen) instead of holding it in host RAM")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="persist solver state here every "
+                         "--checkpoint-every iterations (streaming path)")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest checkpoint in "
+                         "--checkpoint-dir")
     for flag in NOT_PORTED:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -178,7 +255,14 @@ def main(argv=None):
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             raise SystemExit(f"{flag} is not ported yet (ROADMAP item "
                              f"{item})")
-    if args.executor != "local":
+    if args.executor is None:
+        if args.streaming:
+            warnings.warn("--streaming is deprecated; use --executor "
+                          "streaming", DeprecationWarning, stacklevel=2)
+            args.executor = "streaming"
+        else:
+            args.executor = "local"
+    if args.executor not in ("local", "streaming"):
         raise SystemExit(f"--executor {args.executor} is not ported yet "
                          f"(ROADMAP item {EXECUTOR_ITEMS[args.executor]})")
 
@@ -208,12 +292,16 @@ def main(argv=None):
 
 
 def _solve_and_report(args, D, aux, mu, dev):
-    """``fit()`` on node-stacked dense data, then the result lines."""
+    """``fit()`` (or, for ``--executor streaming``, the out-of-core fit)
+    on node-stacked dense data, then the result lines."""
     n = D.shape[-1]
     t0 = time.time()
-    res = fit_glm(args.problem, D, aux, method=args.method,
-                  mu=mu if args.problem in ("lasso", "sparse_logistic")
-                  else None, iters=args.iters, device=dev)
+    if args.executor == "streaming":
+        res = _fit_streaming(args, D, aux, mu, dev)
+    else:
+        res = fit_glm(args.problem, D, aux, method=args.method,
+                      mu=mu if args.problem in ("lasso", "sparse_logistic")
+                      else None, iters=args.iters, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
@@ -260,7 +348,8 @@ def _main_sparse(args, dev):
         return _solve_and_report(args, D.to_dense().reshape(N, mi, n),
                                  aux.reshape(N, mi), mu, dev)
     t0 = time.time()
-    res = _fit_sparse(args, D, aux, mu, dev)
+    res = (_fit_streaming if args.executor == "streaming"
+           else _fit_sparse)(args, D, aux, mu, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     print(f"[{args.method}] {args.problem}: {res.iters} iters in "

@@ -42,7 +42,9 @@ def test_port_imports_no_jax_and_no_repro():
     mods = _modules()
     assert "repro_torch.engine.engine" in mods and len(mods) >= 20
     for name in ("core.oracles", "core.fasta", "core.consensus", "core.fit",
-                 "exec.problems", "service", "service.registry"):
+                 "exec.problems", "service", "service.registry",
+                 "data.store", "checkpoint.manager", "service.stats",
+                 "engine.streaming", "exec.streaming"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

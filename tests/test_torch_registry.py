@@ -221,10 +221,14 @@ def test_unknown_problems_and_executors_raise():
             fn()
     with pytest.raises(ValueError, match="unsupported"):
         treg.get_solver("svm", "fasta")
-    for kind, item in (("streaming", 7), ("shard_map", 8)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            tprob.make_executor(kind, tprob.make_problem("logistic"),
-                                a.D_c, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        tprob.make_executor("shard_map", tprob.make_problem("logistic"),
+                            a.D_c, device="cpu")
+    # the streaming executor (ROADMAP item 7) is ported
+    ex = tprob.make_executor("streaming", tprob.make_problem("logistic"),
+                             a.D_c.reshape(-1, 20), a.lab.reshape(-1),
+                             device="cpu", block_rows=300)
+    assert ex.name == "streaming" and ex.store.block_rows == 300
     with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
         tprob.fit_on_executor(tprob.make_problem("logistic"), "cluster",
                               a.D_c, a.lab)

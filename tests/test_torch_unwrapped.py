@@ -191,12 +191,23 @@ def test_unported_paths_name_their_roadmap_item(classif):
     D, lab = classif
     Dt, lt = torch.from_numpy(D), torch.from_numpy(lab)
     s = UnwrappedADMM(tprox.make_logistic(), tau=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        s.solve(Dt, lt, checkpoint_dir="ckpt", checkpoint_every=5)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         s.solve(Dt, lt, obs=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        s.solve_streaming(None)
+    # checkpoints and the out-of-core solve (ROADMAP item 7) are ported:
+    # a checkpointed solve resumes to the same bits as an uninterrupted one
+    import tempfile
+    from repro_torch.data.store import ShardedMatrixStore
+    with tempfile.TemporaryDirectory() as tmp:
+        full = s.solve(Dt, lt, max_iters=12)
+        s.solve(Dt, lt, max_iters=5, checkpoint_dir=tmp,
+                checkpoint_every=5)
+        back = s.solve(Dt, lt, max_iters=12, checkpoint_dir=tmp,
+                       resume=True)
+        assert back.iters == full.iters and torch.equal(back.x, full.x)
+    store = ShardedMatrixStore.from_arrays(D, lab, block_rows=300)
+    st = s.solve_streaming(store, max_iters=12)
+    assert float(torch.linalg.norm(st.x - full.x)
+                 / torch.linalg.norm(full.x)) < 2e-4
     # sparse data (ROADMAP item 6) are ported: a BlockCSR of the same
     # matrix solves to the dense solve's x, y / lam as (1, m)
     from repro_torch.data.sparse import BlockCSR
@@ -290,11 +301,11 @@ def test_fit_cli_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--streaming"], "ROADMAP item 7"),
+    (["--workers", "2"], "ROADMAP item 9"),
     (["--executor", "cluster"], "ROADMAP item 9"),
     (["--obs-dir", "obs"], "ROADMAP item 10"),
     (["--executor", "shard_map"], "ROADMAP item 8"),
-    (["--resume"], "ROADMAP item 7"),
+    (["--multi-device"], "ROADMAP item 8"),
 ])
 def test_fit_cli_names_roadmap_item_for_unported_flags(argv, item):
     with pytest.raises(SystemExit, match=item):
