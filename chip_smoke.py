@@ -98,9 +98,25 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               Cholesky update / downdate of a 1,000-row block, and
               ``launch.fit.main --executor streaming`` with checkpoints,
               then ``--resume``, at 2^20 rows.
+9. shard_map — runs right after phase 5, while phase 4's star catalog is
+              still on the card: the shard_map path (rows over the ranks of
+              a process group, ``ShardMapExecutor`` under the shared driver)
+              at world 1 on NCCL, and at worlds 2 and 4 on gloo with every
+              rank on the one card (world 2 also with int8 error-feedback
+              compression). D is shared with the ranks by CUDA IPC, so it
+              lives once on the card and each rank takes a view of its
+              rows. Each is a logistic solve (tau 0.1, at most 200
+              iterations, Boyd's rule): x bitwise equal on every rank and
+              held to the local solve's x (1e-5, compressed 1e-3), each
+              rank's K2a and K3 counts set to 0 just before and read just
+              after (1 and the iterations, K3 all on the ring); printed:
+              ms/iter beside the local solve's, the reduction's time per
+              iteration apart from K3, the setup, the peak device memory
+              per rank, the iterations. Then K3 at the world-4 shard's
+              shape (m / 4 rows) against its plain version.
    The LM slices run, qwen3-8b then rwkv6-1.6b, each at full width and
    depth (f32 weights, random from the seed; each freed before the next):
-9. lm main  — ``forward`` through the slice's kernel (K4 for qwen3-8b at
+10. lm main — ``forward`` through the slice's kernel (K4 for qwen3-8b at
               B 2 x S 4096, K5 for rwkv6-1.6b at B 8 x T 4096) and
               ``loss_fn``, with the kernel's count set to 0 just before and
               read just after (one launch per layer and forward; K4's
@@ -109,10 +125,10 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               decode steps against ``forward``'s logits; then the same at
               full width, 4 layers and f32 compute with tight bounds
               (K4: all on the FMA route).
-10. serve   — ``repro_torch.launch.serve.main`` at full size (batch 8,
+11. serve   — ``repro_torch.launch.serve.main`` at full size (batch 8,
               prompt 2048, 64 generated tokens): prefill seconds, decode
               ms/step and tok/s.
-11. timing  — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
+12. timing  — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
               bf16, causal) against its plain version and
               ``scaled_dot_product_attention``, and the FMA route on f32
               copies of the same inputs (printed); K5 at the rwkv lm shape
@@ -200,6 +216,9 @@ SOURCES = {
     "K6_sparse_admm_iter_store_block": (
         "src/repro_torch/kernels/csrc/spgram.cu",
         "src/repro/kernels/spgram/spgram.py:96"),
+    # K3 on the shard_map path, at the world-4 shard (m / 4 rows)
+    "K3_admm_iter_shard": ("src/repro_torch/kernels/csrc/admm_iter.cu",
+                           "src/repro/kernels/admm_iter/admm_iter.py:82"),
 }
 
 
@@ -545,6 +564,8 @@ def phase_main(torch, rt, rows: int, iters: int):
             print(f"main: Gram condition number {cond:.4g}", flush=True)
         obj, acc = summary(res)
         per_iter = (secs * 1e3 - setup_ms) / max(res.iters, 1)
+        if label == "f32":       # phase 9 holds the ranks' x to this one
+            rt["local_f32"] = (res.x, res.iters, per_iter)
         print(f"main {label}: {res.iters} iters, objective {obj:.6g}, "
               f"train acc {acc:.4f}, gram setup {setup_ms:.1f} ms, "
               f"{per_iter:.2f} ms/iter, solve {secs:.2f} s", flush=True)
@@ -796,6 +817,320 @@ def ring_grid_sweep(torch, autotune, iter_ops, D, fn, reps):
 
 # The paper's lasso (section 10.1 / Fig. 1c) at its per-node width: the JAX
 # CLI's documented 50,000 x 200 per node, 320 nodes, heterogeneous
+# phase 9: (world, compress flags) of each group of ranks; all on one card
+SHARD_RUNS = ((1, (False,)), (2, (False, True)), (4, (False,)))
+SHARD_TIMEOUT = 300.0        # seconds per group of ranks
+REDUCE_REPS = 50             # timed reductions per rank
+
+
+def shard_rank(D, lab, flags, iters):
+    """One rank of phase 9, inside its group (``compat.spawn``): a short
+    warm-up solve (the first collective, the kernels' first launches),
+    then for each compress flag the logistic solve under the shared driver
+    on this rank's rows of the shared D (``shard_solve``)."""
+    import torch
+
+    from repro_torch.core.prox import make_logistic
+    from repro_torch.engine import IterationEngine
+    from repro_torch.exec import ShardMapExecutor, solve_with_executor
+    from repro_torch.sharding.compat import current_group
+
+    group = current_group()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    eng = IterationEngine(make_logistic(), tau=0.1, device=str(dev))
+    for compress in sorted(set(flags)):
+        ex = ShardMapExecutor(eng, D, lab, group=group, compress=compress)
+        solve_with_executor(ex, loss=eng.loss, tau=0.1, max_iters=2)
+        del ex
+    return [shard_solve(D, lab, eng, group, dev, compress, iters)
+            for compress in flags]
+
+
+def loop_clock(ex, dev):
+    """Host timestamps, each after a synchronize, at the start and the end
+    of the shared driver's iteration loop on executor ``ex``: ``init``
+    returns just before the first iteration, ``finish`` is called just
+    after the last. Returns the dict they are written to."""
+    import torch
+
+    marks = {}
+    init, finish = ex.init, ex.finish
+
+    def timed_init(x0):
+        d = init(x0)
+        torch.cuda.synchronize(dev)
+        marks["start"] = time.perf_counter()
+        return d
+
+    def timed_finish(iters, converged):
+        torch.cuda.synchronize(dev)
+        marks["stop"] = time.perf_counter()
+        finish(iters, converged)
+
+    ex.init, ex.finish = timed_init, timed_finish
+    return marks
+
+
+def clocked_solve(ex, eng, dev, iters, sync=lambda: None):
+    """``solve_with_executor`` on ``ex`` under ``loop_clock``: (result,
+    setup s from the call to the loop, iteration ms per iteration, final s
+    from the loop to the return), the same yardstick on every executor."""
+    import torch
+
+    from repro_torch.exec import solve_with_executor
+
+    marks = loop_clock(ex, dev)
+    sync()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = solve_with_executor(ex, loss=eng.loss, tau=0.1, max_iters=iters)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    it_ms = (marks["stop"] - marks["start"]) * 1e3 / max(res.iters, 1)
+    return res, marks["start"] - t0, it_ms, t1 - marks["stop"]
+
+
+def shard_solve(D, lab, eng, group, dev, compress, iters):
+    """One timed solve of ``shard_rank``: the rank's K2a / K3 counts (set
+    to 0 just before the solve, read just after), its peak device memory
+    above what it held before, its setup, iterations and final gather from
+    ``clocked_solve`` (no part run twice), and one reduction timed apart
+    (between a barrier and a synchronize)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.engine.streaming import SweepResult
+    from repro_torch.exec import ShardMapExecutor
+    from repro_torch.kernels.admm_iter import ops as iter_ops
+    from repro_torch.kernels.gram import ops as gram_ops
+
+    def timed(fn):
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0, out
+
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ex = ShardMapExecutor(eng, D, lab, group=group, compress=compress)
+    for fn in (gram_ops.gram, iter_ops.admm_iter_full):
+        zero_counts(fn)
+    res, setup_s, it_ms, final_s = clocked_solve(ex, eng, dev, iters,
+                                                 sync=dist.barrier)
+    launches = {"K2a": gram_ops.gram.launches,
+                "K3": iter_ops.admm_iter_full.launches,
+                "K3_ring": iter_ops.admm_iter_full.launches_ring}
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    z = torch.zeros(ex.n, device=dev)
+    s = torch.zeros((), device=dev)
+    sw = SweepResult(z, z, z, s, s, s, s)
+    comm_s, _ = timed(lambda: [ex.reduce(sw) for _ in range(REDUCE_REPS)])
+    return {"x": res.x, "iters": res.iters, "it_ms": it_ms,
+            "setup_s": setup_s, "final_s": final_s,
+            "comm_ms": comm_s * 1e3 / REDUCE_REPS, "launches": launches,
+            "peak": peak, "rows": ex._D.shape[0], "extra": ex.extra_record()}
+
+
+def ef_reference(torch, D, a, world: int, iters: int):
+    """x after ``iters`` iterations of the compressed solve over ``world``
+    ranks, computed in this process as a plain loop: K2a and K3 on each
+    rank's rows, each rank's d through ``ef_compress`` with the residual
+    that rank carries, the dequantized codes summed in rank order. It
+    shares the kernels and ``ef_compress`` with the ranks, and not the
+    executor, the driver, the collectives or their staging through the
+    host. The kernels have fixed reduction orders, so it should give the
+    ranks' bits: under int8 error feedback a last-bit difference flips a
+    code and the two solves part by the compression's own noise (~1e-2 on
+    the star catalog), so no plain body could hold them closer than that."""
+    from repro_torch.cluster.compress import dequantize_int8, ef_compress
+    from repro_torch.core.gram import gram_factor, gram_solve
+    from repro_torch.core.prox import make_logistic
+    from repro_torch.engine import IterationEngine
+
+    eng = IterationEngine(make_logistic(), tau=0.1, device=str(D.device))
+    rows, n = D.shape[0] // world, D.shape[1]
+    shards = [(D[r * rows:(r + 1) * rows], a[r * rows:(r + 1) * rows])
+              for r in range(world)]
+    G = sum(eng.gram(S)[0] for S, _ in shards)
+    L = gram_factor(G, ridge=0.0)
+    zeros = lambda k: torch.zeros((k,), dtype=torch.float32, device=D.device)
+    ys, lams, errs = ([zeros(rows) for _ in shards],
+                      [zeros(rows) for _ in shards], [zeros(n) for _ in shards])
+    d = zeros(n)
+    x = d
+    for _ in range(iters):
+        x = gram_solve(L, d)
+        parts = []
+        for r, (S, A) in enumerate(shards):
+            st = eng.iterate(S, A, ys[r], lams[r], x, want_dual=True)
+            ys[r], lams[r] = st.y, st.lam
+            q, scale, errs[r] = ef_compress(st.d, errs[r])
+            parts.append(dequantize_int8(q, scale, n))
+        d = parts[0].clone()
+        for p in parts[1:]:
+            d += p
+    return x
+
+
+def phase_shard_map(torch, rt, reps: int):
+    """Phase 9: the shard_map path on phase 4's star catalog, shared with
+    the ranks by CUDA IPC (one copy of D on the card; each rank a view of
+    its rows): world 1 on NCCL, worlds 2 and 4 on gloo (ranks sharing the
+    card), world 2 also compressed; then K3 at the world-4 shard's shape
+    against its plain version."""
+    import numpy as np
+
+    from repro_torch.kernels.admm_iter import ops as iter_ops
+    from repro_torch.sharding import compat
+
+    D3, lab, _, y, lam = rt["main"]
+    x_loc, it_loc, ms_loc = rt["local_f32"]
+    m, n = D3.shape[1], D3.shape[2]
+    D, a = D3.reshape(m, n), lab.reshape(m)
+    xl = x_loc.double()
+
+    def gap(x):
+        x = torch.as_tensor(x, device=xl.device).double()
+        return float((x - xl).abs().max() / max(1.0, float(xl.abs().max())))
+
+    def objective(x):
+        """sum softplus(-a Dx) in float64 over row blocks."""
+        x = torch.as_tensor(x, device=D.device).double()
+        return sum(float(torch.nn.functional.softplus(
+            -a[s:s + (1 << 20)].double() * (D[s:s + (1 << 20)].double() @ x)
+        ).sum()) for s in range(0, m, 1 << 20))
+
+    obj_loc = objective(x_loc)
+
+    # the local solve again, on the ranks' yardstick (``clocked_solve``)
+    from repro_torch.core.prox import make_logistic
+    from repro_torch.engine import IterationEngine
+    from repro_torch.exec import LocalExecutor
+    eng = IterationEngine(make_logistic(), tau=0.1, device="cuda")
+    res, setup_s, it_ms_loc, _ = clocked_solve(
+        LocalExecutor(eng, D3, lab), eng, torch.device("cuda"), ITERS)
+    check(torch.equal(res.x, x_loc) and res.iters == it_loc,
+          "shard_map: the local solve repeats phase 4's x bit for bit")
+    print(f"shard_map: local solve {it_loc} iterations, "
+          f"{it_ms_loc:.2f} ms/iter, setup {setup_s * 1e3:.1f} ms (the "
+          f"ranks' yardstick; phase 4's: {ms_loc:.2f} ms/iter)", flush=True)
+    del res
+    for world, flags in SHARD_RUNS:
+        backend = compat.layout_backend("cuda", world)
+        check(world > torch.cuda.device_count() or backend == "nccl",
+              f"shard_map world {world}: each rank has its own card -> "
+              f"{backend}")
+        t0 = time.perf_counter()
+        ranks = compat.spawn(shard_rank, world, backend,
+                             args=(D, a, flags, ITERS), device="cuda",
+                             timeout=SHARD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        print(f"shard_map world {world}: {world} ranks on {backend}, "
+              f"spawned, solved and joined in {wall:.1f} s", flush=True)
+        for i, compress in enumerate(flags):
+            rs = [r[i] for r in ranks]
+            r0 = rs[0]
+            label = f"world {world}{' compressed' if compress else ''}"
+            same = all(np.array_equal(r["x"].view(np.uint32),
+                                      r0["x"].view(np.uint32))
+                       and r["iters"] == r0["iters"] for r in rs)
+            check(same, f"{label}: x and iterations bitwise equal on the "
+                  f"{world} ranks ({r0['iters']} iterations)")
+            k = r0["iters"]
+            counts = [r["launches"] for r in rs]
+            check(all(c == {"K2a": 1, "K3": k, "K3_ring": k}
+                      for c in counts),
+                  f"{label}: per rank K2a 1, K3 {k} (all ring) launches: "
+                  f"{counts}")
+            check(r0["extra"] == {"shards": world, "backend": backend},
+                  f"{label}: extra_record {r0['extra']}")
+            e = gap(r0["x"])
+            if compress:
+                # an int8 code's step is 1/127 of its group's largest
+                # entry, and the star catalog's d spans ~60 to ~50,000, so
+                # its small entries fall below a step: the compressed
+                # solve's optimum is not the plain one's (the JAX
+                # package's own lands ~9e-3 from its plain one in
+                # objective, tests/test_torch_distributed.py). So x is
+                # held against the same compressed solve as a loop in this
+                # process (``ef_reference``, the same iteration count) at
+                # the uncompressed parity limit, 1e-5: a residual not
+                # carried or a code from the wrong rank moves x ~1e-2.
+                t1 = time.perf_counter()
+                x_ef = ef_reference(torch, D, a, world, k)
+                xr = torch.as_tensor(r0["x"], device=x_ef.device)
+                e_ef = float((xr.double() - x_ef.double()).abs().max()
+                             / max(1.0, float(x_ef.abs().max())))
+                check(e_ef <= 1e-5, f"{label}: x vs the in-process EF loop "
+                      f"at {k} iterations, rel sup-norm {e_ef:.2e} <= 1e-05,"
+                      f" bit-identical {torch.equal(xr, x_ef)} (loop in "
+                      f"{time.perf_counter() - t1:.1f} s)")
+                e_obj = abs(objective(r0["x"]) - obj_loc) / abs(obj_loc)
+                check(e_obj <= 2e-2, f"{label}: objective vs the local "
+                      f"solve's, rel {e_obj:.2e} <= 2e-2 (x: rel sup-norm "
+                      f"{e:.2e}; {k} vs {it_loc} iterations)")
+            else:
+                check(e <= 1e-5, f"{label}: x vs the local x, rel sup-norm "
+                      f"{e:.2e} <= 1e-05 ({k} vs {it_loc} iterations)")
+            if world == 1:
+                bit = torch.equal(torch.as_tensor(r0["x"]),
+                                  x_loc.cpu()) and k == it_loc
+                print(f"shard_map world 1 on NCCL bit-identical to the "
+                      f"local solve: {bit}", flush=True)
+            it_ms = max(r["it_ms"] for r in rs)
+            print(f"shard_map {label}: {k} iterations, "
+                  f"{it_ms:.2f} ms/iter (local {it_ms_loc:.2f}, same "
+                  f"clock); reduction {r0['comm_ms']:.3f} ms/iter "
+                  f"apart from K3; setup {max(r['setup_s'] for r in rs) * 1e3:.1f}"
+                  f" ms; final gather {max(r['final_s'] for r in rs) * 1e3:.1f}"
+                  f" ms; peak device memory per rank "
+                  f"{[round(r['peak'] / 2**20, 1) for r in rs]} MiB; rows "
+                  f"per rank {r0['rows']}", flush=True)
+        if world == 4:
+            rt["launches"]["K3_admm_iter_shard"] = sum(
+                r[0]["launches"]["K3"] for r in ranks)
+
+    # K3 at the world-4 shard's shape (the first rank's rows), from the
+    # local solution's iterates; the world-2 shard timed beside it
+    timer = Timer(torch, reps)
+    delta = 1.0 / 0.1
+    x = x_loc.float()
+    for rows in (m // 2, m // 4):
+        Ds, As = D[:rows], a[:rows]
+        ys = y.reshape(-1)[:rows].contiguous()
+        ls = lam.reshape(-1)[:rows].contiguous()
+        k3 = lambda: iter_ops.admm_iter_full(Ds, As, ys, ls, x,
+                                             kind="logistic", delta=delta)
+        check(iter_ops.route(rows, n, D.dtype) == "ring",
+              f"K3 at the shard {rows}x{n} routes to the ring kernel")
+        if rows != m // 4:
+            print(f"time K3 at the world-2 shard {rows}x{n}: "
+                  f"{timer(k3):.3f} ms", flush=True)
+            continue
+        p3 = lambda: iter_ops.admm_iter_plain(Ds, As, ys, ls, x,
+                                              kind="logistic", delta=delta)
+        o1, o2 = k3(), p3()
+        e_yl = max(rel_err(torch, o1[0], o2[0]),
+                   rel_err(torch, o1[1], o2[1]))
+        e_dwv = max(float((u - v).abs().max() / v.abs().max().clamp(min=1))
+                    for u, v in zip(o1[2:], o2[2:]))
+        same = all(torch.equal(u, v) for u, v in zip(o1, k3()))
+        check(e_yl <= 4e-6 and e_dwv <= 1e-4 and same,
+              f"K3 at the shard {rows}x{n}: y/lam err {e_yl:.2e} <= 4e-6, "
+              f"d/w/v err {e_dwv:.2e} <= 1e-4, bitwise repeat")
+        err = max(float((u - v).abs().max()) for u, v in zip(o1, o2))
+        del o1, o2
+        record(rt, "K3_admm_iter_shard", err, timer(k3), timer(p3),
+               bound(rt, rows * n * 4 + 5 * rows * 4 + 4 * n * 4,
+                     rows * (8 * n + PROX_FLOPS["logistic"])), None)
+
+
 LASSO = dict(N=320, m_per_node=50_000, n=200)
 LASSO_ITERS = 500            # FASTA iterations of the gram-path fits
 CONSENSUS_ITERS = 400        # outer iterations of the consensus baseline
@@ -2580,6 +2915,7 @@ def main(argv=None):
         return
     phase_main(torch, rt, args.rows, ITERS)
     phase_timing(torch, rt, REPS)
+    phase_shard_map(torch, rt, REPS)
     # the ADMM main path's D (20.6 GB) goes before the LM weights
     del rt["main"]
     print(f"admm: freed, {free_device_memory(torch):.2f} GB still "

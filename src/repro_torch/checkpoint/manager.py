@@ -20,9 +20,11 @@ order (a dict by sorted keys), so leaf ``i`` is the same array in both
 packages. Leaves are gathered to the host on the calling thread (copies:
 the caller may overwrite its buffers as soon as ``save`` returns) and
 restored as tensors on the device of the matching leaf of ``tree_like``
-(CPU where that leaf is not a tensor). The reference's ``shardings=``
-(re-placing leaves on another mesh) has no counterpart before the
-multi-GPU port (ROADMAP item 8).
+(CPU where that leaf is not a tensor), or where ``placements`` says: the
+counterpart of the reference's ``shardings=``. A placement is a device or a
+row shard: an object whose ``take(tensor)`` gives one rank's rows of the
+zero-padded array (:class:`~repro_torch.sharding.compat.RowShard`), so a checkpoint written whole restores onto any world
+size: the elastic restart.
 """
 from __future__ import annotations
 
@@ -201,9 +203,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, tree_like: Any, step: Optional[int] = None,
-                fallback: bool = False) -> Tuple[Any, Dict]:
+                fallback: bool = False, placements: Any = None
+                ) -> Tuple[Any, Dict]:
         """Restore into the structure of ``tree_like``; returns (tree,
-        extra). ``fallback=True`` walks back to the previous committed step
+        extra). ``placements`` (optional: a tree of the same structure whose
+        leaves are devices or row shards) re-places each leaf, on
+        a device or as one rank's rows: the elastic-restart path.
+        ``fallback=True`` walks back to the previous committed step
         when the newest one fails its crc / manifest check (disk rot on the
         most recent write must not strand a recovering solve when older
         intact steps exist); an explicit ``step`` disables the walk-back."""
@@ -211,7 +217,7 @@ class CheckpointManager:
             last_err: Optional[Exception] = None
             for s in reversed(self.all_steps()):
                 try:
-                    return self._restore_step(tree_like, s)
+                    return self._restore_step(tree_like, s, placements)
                 except (IOError, OSError, ValueError, KeyError) as e:
                     last_err = e
             if last_err is not None:
@@ -223,25 +229,35 @@ class CheckpointManager:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint found in {self.dir}")
-        return self._restore_step(tree_like, step)
+        return self._restore_step(tree_like, step, placements)
 
-    def _restore_step(self, tree_like: Any, step: int) -> Tuple[Any, Dict]:
+    def _restore_step(self, tree_like: Any, step: int,
+                      placements: Any = None) -> Tuple[Any, Dict]:
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         leaves_like, struct = _flatten(tree_like)
         if len(leaves_like) != len(manifest["leaves"]):
             raise ValueError(f"tree mismatch: {len(leaves_like)} leaves vs "
                              f"{len(manifest['leaves'])} in step {step}")
+        places = _flatten(placements)[0] if placements is not None \
+            else [None] * len(leaves_like)
+        if len(places) != len(leaves_like):
+            raise ValueError(f"placements mismatch: {len(places)} leaves vs "
+                             f"{len(leaves_like)} in the tree")
         out = []
-        for i, (meta, like) in enumerate(zip(manifest["leaves"],
-                                             leaves_like)):
+        for i, (meta, like, place) in enumerate(zip(
+                manifest["leaves"], leaves_like, places)):
             arr = np.load(d / f"leaf_{i}.npy")
             crc = zlib.crc32(np.ascontiguousarray(arr).tobytes())
             if crc != meta["crc32"]:
                 raise IOError(f"checkpoint corruption in leaf {i} "
                               f"(crc {crc} != {meta['crc32']})")
             t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
-            if isinstance(like, torch.Tensor):
+            if hasattr(place, "take"):          # a row shard
+                t = place.take(t)
+            elif place is not None:
+                t = t.to(place)
+            elif isinstance(like, torch.Tensor):
                 t = t.to(like.device)
             out.append(t)
         return _unflatten(struct, out), manifest["extra"]

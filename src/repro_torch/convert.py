@@ -5,8 +5,9 @@ The JAX package hands over numpy arrays (``np.asarray`` of an
 ``init_params`` tree); this module turns them into the port's tensors on a
 given device, so a solve started in JAX can continue here and both
 packages' LMs can run on the same weights (the parity tests do exactly
-that). A JAX loss spec (``{"name": "hinge", "C": 1.0}``) becomes the
-port's loss through :func:`loss_from_spec`. It imports nothing of the JAX
+that). The JAX ``ShardMapExecutor``'s iterate state becomes one rank's
+(:func:`shard_state`). A JAX loss spec (``{"name": "hinge", "C": 1.0}``)
+becomes the port's loss through :func:`loss_from_spec`. It imports nothing of the JAX
 package: the inputs are plain numpy arrays, dicts and loss specs.
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.core.prox import loss_from_spec  # noqa: F401 (re-export)
 from repro_torch.device import resolve_device
+from repro_torch.sharding.compat import shard_rows
 
 STATE_KEYS = ("x", "y", "lam", "d")
 
@@ -51,6 +53,27 @@ def solver_state(src, device="cuda") -> dict:
     for k in STATE_KEYS:
         v = get(k)
         out[k] = None if v is None else tensor(v, device, torch.float32)
+    return out
+
+
+def shard_state(src: Mapping, m: int, rank: int, world: int,
+                device="cuda") -> dict:
+    """The JAX ``ShardMapExecutor``'s iterate state as rank ``rank``'s of
+    ``world`` in the port (``ShardMapExecutor.adopt`` takes it).
+
+    ``src`` maps ``y`` and ``lam`` (the reference's global arrays, (m,) or
+    (m, K), possibly zero-padded to its own shard multiple) and ``err``
+    ((shards, n): one EF residual per shard) to numpy arrays; ``m`` is the
+    unpadded row count. y and lam become this rank's rows of the arrays
+    zero-padded at ``world``. The EF error becomes row ``rank`` of err when
+    the reference ran ``world`` shards; at another world size it starts at
+    zero, as on a restore (a residual belongs to its sender's stream)."""
+    out = {k: tensor(shard_rows(np.asarray(src[k])[:m], rank, world),
+                     device, torch.float32) for k in ("y", "lam")}
+    err = np.asarray(src["err"], dtype=np.float32)
+    out["err"] = tensor(err[rank] if err.shape[0] == world
+                        else np.zeros(err.shape[1:], np.float32),
+                        device, torch.float32)
     return out
 
 

@@ -1,13 +1,15 @@
 """The paper's contribution: unwrapped ADMM with transpose reduction
 (PyTorch port of ``repro.core``): the single-device solve on dense or
-block-CSR data, the column-split dual lasso, FASTA on the cached Gram, the
-consensus baseline and ``fit()``."""
+block-CSR data, the solve over the ranks of a process group, the
+column-split dual lasso, FASTA on the cached Gram, the consensus baseline
+and ``fit()``."""
 from repro_torch.core.column_split import ColumnSplitResult, lasso_column_split
 from repro_torch.core.consensus import (
     ConsensusLasso,
     ConsensusLogistic,
     ConsensusSVM,
 )
+from repro_torch.core.distributed import DistributedUnwrappedADMM
 from repro_torch.core.fasta import (
     Fasta,
     lasso_mu_max,
@@ -44,7 +46,8 @@ from repro_torch.core.unwrapped import (
 
 __all__ = [
     "ADMMResult", "ColumnSplitResult", "ConsensusLasso",
-    "ConsensusLogistic", "ConsensusSVM", "Fasta", "FitResult", "ProxLoss",
+    "ConsensusLogistic", "ConsensusSVM", "DistributedUnwrappedADMM", "Fasta",
+    "FitResult", "ProxLoss",
     "StackedProx", "UnwrappedADMM", "fit", "gram_and_rhs_chunked",
     "gram_chunked", "gram_factor", "gram_rhs", "gram_solve",
     "lasso_column_split", "lasso_mu_max", "loss_from_spec", "make_hinge",

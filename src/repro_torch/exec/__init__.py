@@ -1,8 +1,8 @@
 """repro_torch.exec — the SolveExecutor contract, the one shared ADMM
 solve loop (``solve_with_executor``, DESIGN.md section 14) and
-problems-on-executors. The local
-and streaming (out-of-core) topologies are ported; shard_map and cluster
-are ROADMAP items 8 and 9."""
+problems-on-executors. The local,
+streaming (out-of-core) and shard_map (rows over the ranks of a process
+group) topologies are ported; cluster is ROADMAP item 9."""
 from repro_torch.exec.base import (
     Regularizer,
     SolveExecutor,
@@ -21,6 +21,7 @@ from repro_torch.exec.problems import (
     make_problem,
     synth_data,
 )
+from repro_torch.exec.shard_map import ShardMapExecutor, default_group
 from repro_torch.exec.streaming import StreamingExecutor
 
 __all__ = [
@@ -28,9 +29,11 @@ __all__ = [
     "ExecProblem",
     "LocalExecutor",
     "Regularizer",
+    "ShardMapExecutor",
     "SolveExecutor",
     "StreamingExecutor",
     "composite_x_update",
+    "default_group",
     "fit_on_executor",
     "make_executor",
     "make_group_lasso_reg",

@@ -114,6 +114,7 @@ class SolveExecutor(abc.ABC):
     checkpoint_kind: str = "solve"   # checkpoint `extra["kind"]` tag
     kind_label: str = "executor"     # human label in restore errors
     restore_fallback: bool = False   # CheckpointManager fallback scan
+    writes_checkpoint: bool = True   # False: another rank writes them
     error_cls = ValueError           # restore-refusal exception type
     status: str = "ok"               # backends may set "degraded"
 
@@ -164,6 +165,11 @@ class SolveExecutor(abc.ABC):
 
     def verify_checkpoint(self, extra: dict):
         """Raise ``error_cls`` when the checkpoint belongs elsewhere."""
+
+    def restore_placements(self) -> Optional[dict]:
+        """Where each restored leaf goes (``CheckpointManager.restore``'s
+        ``placements``), or None for the devices of ``state_like``."""
+        return None
 
     def restore_state(self, k: int, tree: dict) -> Tensor:
         """Adopt restored (y, lam); return the restored d."""
@@ -229,7 +235,8 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
     ex.resume_iter = 0
     if manager is not None and resume and manager.latest_step() is not None:
         tree, extra = manager.restore(ex.state_like(),
-                                      fallback=ex.restore_fallback)
+                                      fallback=ex.restore_fallback,
+                                      placements=ex.restore_placements())
         if extra.get("kind") != ex.checkpoint_kind:
             raise ex.error_cls(
                 f"not a {ex.kind_label} checkpoint: {extra}")
@@ -282,10 +289,12 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
                 and k % checkpoint_every == 0:
             state = ex.state_arrays(k)
             if state is not None:
-                manager.save(k, {"x": x, "y": state["y"],
-                                 "lam": state["lam"], "d": d},
-                             extra={"kind": ex.checkpoint_kind, "iter": k,
-                                    **ex.checkpoint_extra()})
+                if ex.writes_checkpoint:
+                    manager.save(k, {"x": x, "y": state["y"],
+                                     "lam": state["lam"], "d": d},
+                                 extra={"kind": ex.checkpoint_kind,
+                                        "iter": k,
+                                        **ex.checkpoint_extra()})
                 ex.on_checkpointed(k, state)
         if r <= eps_pri and s <= eps_dual:
             k_conv = k - 1

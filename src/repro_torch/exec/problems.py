@@ -5,8 +5,8 @@ A problem is (picklable loss spec, tau, rho, optional x-space regularizer
 factory) — nothing topology-specific. ``fit_on_executor`` builds the
 :class:`~repro_torch.exec.base.SolveExecutor` for the requested topology
 and hands it to the one shared solve loop, ``solve_with_executor``. The
-local and streaming topologies are ported; shard_map and cluster are
-ROADMAP items 8 and 9 and raise.
+local, streaming and shard_map topologies are ported; cluster is ROADMAP
+item 9 and raises.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ from repro_torch.exec.base import (
 
 EXECUTORS = ("local", "streaming", "shard_map", "cluster")
 # executor -> ROADMAP item that ports it
-EXECUTOR_ITEMS = {"shard_map": 8, "cluster": 9}
+EXECUTOR_ITEMS = {"cluster": 9}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,19 +98,28 @@ def make_executor(kind: str, prob: ExecProblem, D, aux=None,
     (numpy or tensors), on ``device``. ``streaming`` stages the data into
     a host block store (``opts``: ``store=`` a ready
     :class:`~repro_torch.data.store.ShardedMatrixStore`, or ``block_rows=``
-    for the one built here). ``cluster`` is not built here, as in the
-    reference: it owns worker processes."""
-    if kind == "shard_map":
-        raise NotImplementedError(
-            f"the {kind} executor is not ported yet (ROADMAP item "
-            f"{EXECUTOR_ITEMS[kind]})")
-    if kind not in ("local", "streaming"):
+    for the one built here). ``shard_map`` runs this rank's part of a
+    solve over the ranks of ``opts["group"]`` (default: the current group,
+    else a world of one), on the rank's card for an unindexed ``cuda``;
+    ``compress=True`` compresses its d reduction. ``cluster`` is not built
+    here, as in the reference: it owns worker processes."""
+    if kind not in ("local", "streaming", "shard_map"):
         raise ValueError(f"unknown executor kind {kind!r}; "
                          f"expected one of {EXECUTORS}")
     from repro_torch.engine import IterationEngine
     dev = resolve_device(device)
+    group = None
+    if kind == "shard_map":
+        from repro_torch.exec.shard_map import default_group
+        from repro_torch.sharding.compat import rank_device
+        group = opts.get("group") or default_group()
+        dev = rank_device(dev, group.local_rank)
     engine = IterationEngine(loss=prob.loss(), tau=prob.tau,
                              backend=backend, device=str(dev))
+    if kind == "shard_map":
+        from repro_torch.exec.shard_map import ShardMapExecutor
+        return ShardMapExecutor(engine, D, aux, group=group,
+                                compress=bool(opts.get("compress", False)))
     if kind == "streaming":
         from repro_torch.data.store import ShardedMatrixStore
         from repro_torch.exec.streaming import StreamingExecutor

@@ -26,12 +26,23 @@ height fits ``--device-budget-mb``, and the solve streams the blocks
 through the fused body; ``--checkpoint-dir`` / ``--checkpoint-every`` /
 ``--resume`` checkpoint it and resume it bit for bit. The lasso takes
 the stats path there: ``SufficientStats.from_store`` (one K2b launch per
-block on the card), then FASTA on the Gram. The JAX CLI's other flags exit
-with the ROADMAP item that ports them.
+block on the card), then FASTA on the Gram.
+
+``--executor shard_map`` (``--multi-device`` is its deprecated alias)
+shards the rows of the logistic and SVM solves over the ranks of a
+``torch.distributed`` group, under the shared driver (other problems and
+methods take the local path, as in the JAX CLI). Under ``torchrun`` each
+rank joins the group from the environment. Alone, the CLI starts one rank
+per visible card (NCCL), or on the CPU as many gloo ranks as
+``REPRO_TORCH_CPU_RANKS`` says (default 1); the data are made once and
+shared with the ranks. A world of one runs in this process and starts no
+process group. The JAX CLI's other flags exit with the ROADMAP
+item that ports them.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 import warnings
 
@@ -47,7 +58,7 @@ from repro_torch.exec.problems import EXECUTOR_ITEMS
 
 # flag -> ROADMAP item that ports it
 NOT_PORTED = {
-    "--workers": 9, "--multi-device": 8, "--cluster": 9,
+    "--workers": 9, "--cluster": 9,
     "--cluster-compress": 9, "--cluster-staleness": 9, "--chaos-seed": 9,
     "--chaos-spec": 9, "--min-quorum": 9, "--iter-deadline": 9,
     "--obs-dir": 10,
@@ -152,6 +163,33 @@ def _fit_streaming(args, D, aux, mu, dev):
                      "transpose", args.problem)
 
 
+def _fit_shard_map(args, D, aux, dev):
+    """The shard_map solve under the shared driver: in this process under
+    ``torchrun`` (its group) or at a world of one (``SOLO``), else on new
+    ranks sharing D."""
+    from repro_torch.exec.shard_map import fit_rank
+    from repro_torch.sharding import compat
+
+    n = D.shape[-1]
+    call = {"problem": args.problem, "D": D.reshape(-1, n),
+            "aux": aux.reshape(-1), "max_iters": args.iters,
+            "record": True}
+    world = compat.local_world(dev)
+    if compat.launched_by_torchrun() or world == 1:  # main entered the group
+        out = fit_rank([call], str(dev))[0]
+    else:
+        backend = compat.layout_backend(dev, world)
+        threads = max(1, (os.cpu_count() or 1) // world) \
+            if dev.type == "cpu" else None
+        out = compat.spawn(fit_rank, world, backend, args=([call], str(dev)),
+                           device=dev, threads=threads)[0][0]
+    print(f"shard_map: {out['extra']['shards']} ranks on "
+          f"{out['extra']['backend']}", flush=True)
+    x = torch.as_tensor(out["x"]).to(dev)
+    return FitResult(x, int(out["iters"]), torch.as_tensor(out["objective"]),
+                     "transpose", args.problem)
+
+
 def _fit_sparse(args, bcsr, aux, mu, dev):
     """In-memory sparse fit over the engine's block-CSR body."""
     from repro_torch.core.fasta import transpose_reduction_lasso
@@ -212,9 +250,10 @@ def main(argv=None):
                     choices=["transpose", "consensus", "fasta"])
     ap.add_argument("--executor", default=None,
                     choices=["local", "streaming", "shard_map", "cluster"],
-                    help="solve topology: in-memory local (default) or "
-                         "out-of-core streaming (shard_map and cluster "
-                         "are not ported yet)")
+                    help="solve topology: in-memory local (default), "
+                         "out-of-core streaming, or rows over the ranks "
+                         "of a process group (shard_map); cluster is not "
+                         "ported yet")
     ap.add_argument("--nodes", type=int, default=8)
     ap.add_argument("--rows-per-node", type=int, default=5000)
     ap.add_argument("--features", type=int, default=200)
@@ -233,6 +272,8 @@ def main(argv=None):
                          "(O(nnz) per pass) or densify for comparison")
     ap.add_argument("--streaming", action="store_true",
                     help="deprecated alias for --executor streaming")
+    ap.add_argument("--multi-device", action="store_true",
+                    help="deprecated alias for --executor shard_map")
     ap.add_argument("--device-budget-mb", type=int, default=256,
                     help="device-memory budget of the D blocks in flight "
                          "for --executor streaming")
@@ -260,13 +301,28 @@ def main(argv=None):
             warnings.warn("--streaming is deprecated; use --executor "
                           "streaming", DeprecationWarning, stacklevel=2)
             args.executor = "streaming"
+        elif args.multi_device:
+            warnings.warn("--multi-device is deprecated; use --executor "
+                          "shard_map", DeprecationWarning, stacklevel=2)
+            args.executor = "shard_map"
         else:
             args.executor = "local"
-    if args.executor not in ("local", "streaming"):
+    if args.executor not in ("local", "streaming", "shard_map"):
         raise SystemExit(f"--executor {args.executor} is not ported yet "
                          f"(ROADMAP item {EXECUTOR_ITEMS[args.executor]})")
 
     dev = resolve_device(args.device)
+    if args.executor == "shard_map":
+        from repro_torch.sharding import compat
+        # under torchrun, join first (a CUDA rank makes its data on its own
+        # card) and leave the group at the end; alone, the world of one
+        with compat.make_group(device=dev) as group, compat.use_group(group):
+            return _run(args, dev)
+    return _run(args, dev)
+
+
+def _run(args, dev):
+    """Make the data, then ``_solve_and_report`` (or the sparse path)."""
     if args.density is not None:
         return _main_sparse(args, dev)
     N, mi, n = args.nodes, args.rows_per_node, args.features
@@ -298,6 +354,9 @@ def _solve_and_report(args, D, aux, mu, dev):
     t0 = time.time()
     if args.executor == "streaming":
         res = _fit_streaming(args, D, aux, mu, dev)
+    elif args.executor == "shard_map" and args.method == "transpose" \
+            and args.problem in ("logistic", "svm"):
+        res = _fit_shard_map(args, D, aux, dev)
     else:
         res = fit_glm(args.problem, D, aux, method=args.method,
                       mu=mu if args.problem in ("lasso", "sparse_logistic")

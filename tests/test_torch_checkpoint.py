@@ -3,9 +3,9 @@
 corruption detected, uncommitted tmp ignored, a killed writer never
 corrupts) and the reference's on-disk layout: a checkpoint the JAX
 package's ``CheckpointManager`` wrote restores here to the same arrays,
-and the other way round. ``test_elastic_restore_new_sharding`` (re-placing
-leaves on another mesh through ``shardings=``) is JAX-specific and waits
-for the multi-GPU port (ROADMAP item 8)."""
+and the other way round. ``test_elastic_restore_new_sharding`` re-places
+leaves through ``placements=`` (a device or one rank's rows), the port's
+counterpart of the reference's ``shardings=``."""
 import os
 import subprocess
 import sys
@@ -19,6 +19,7 @@ import torch
 
 from repro.checkpoint.manager import CheckpointManager as JManager
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.sharding.compat import RowShard
 
 jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
@@ -124,6 +125,7 @@ def test_killed_writer_never_corrupts(tmp_path):
 import os, signal, threading
 import torch
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.sharding.compat import RowShard
 m = CheckpointManager({str(tmp_path)!r})
 tree = {{"w": torch.ones((2048, 512)), "b": torch.zeros((4096,))}}
 m.save(1, tree, extra={{"step": 1}})
@@ -170,3 +172,35 @@ def test_reference_checkpoints_restore_here_and_back(tmp_path):
     assert jextra == {"iter": 3}
     for k, v in arrays.items():
         np.testing.assert_array_equal(np.asarray(jtree[k]), v)
+
+
+def test_elastic_restore_new_sharding(tmp_path):
+    """Values survive re-placement on a different topology: every leaf on
+    a device, or the rows of each world size's ranks, which stitch back to
+    the saved arrays (the zero padding of the last rank dropped)."""
+    m = CheckpointManager(str(tmp_path))
+    tree = _tree(5)
+    m.save(1, tree, extra={"step": 1})
+    dev = torch.device("cpu")
+    placed, _ = m.restore(tree, placements={"a": dev, "b": {"c": "cpu",
+                                                            "d": dev}})
+    for a, b in zip(_leaves(tree), _leaves(placed)):
+        assert b.device == dev and torch.equal(a, b)
+    for world in (1, 3, 4, 5):
+        parts = []
+        for rank in range(world):
+            rows = RowShard(rank, world, dev)
+            got, extra = m.restore(tree, placements={
+                "a": rows, "b": {"c": rows, "d": dev}})
+            assert extra == {"step": 1}
+            assert got["a"].shape == (-(-16 // world), 8)
+            assert torch.equal(got["b"]["d"], tree["b"]["d"])
+            parts.append(got)
+        for key in ("a", "c"):
+            want = tree[key] if key == "a" else tree["b"]["c"]
+            cat = torch.cat([p[key] if key == "a" else p["b"]["c"]
+                             for p in parts])
+            assert torch.equal(cat[:want.shape[0]], want)
+            assert not cat[want.shape[0]:].any()
+    with pytest.raises(ValueError, match="placements mismatch"):
+        m.restore(tree, placements={"a": dev})

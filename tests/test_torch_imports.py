@@ -44,7 +44,8 @@ def test_port_imports_no_jax_and_no_repro():
     for name in ("core.oracles", "core.fasta", "core.consensus", "core.fit",
                  "exec.problems", "service", "service.registry",
                  "data.store", "checkpoint.manager", "service.stats",
-                 "engine.streaming", "exec.streaming"):
+                 "engine.streaming", "exec.streaming", "cluster.compress",
+                 "sharding.compat", "core.distributed", "exec.shard_map"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

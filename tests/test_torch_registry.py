@@ -221,9 +221,13 @@ def test_unknown_problems_and_executors_raise():
             fn()
     with pytest.raises(ValueError, match="unsupported"):
         treg.get_solver("svm", "fasta")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        tprob.make_executor("shard_map", tprob.make_problem("logistic"),
-                            a.D_c, device="cpu")
+    # the shard_map executor (ROADMAP item 8) is ported: outside a process
+    # group it runs a world of one that starts no process group
+    ex = tprob.make_executor("shard_map", tprob.make_problem("logistic"),
+                             a.D_c, a.lab, device="cpu")
+    assert ex.name == "shard_map" and ex.world == 1 and ex.pad == 0
+    assert ex.extra_record() == {"shards": 1, "backend": "none"}
+    assert not torch.distributed.is_initialized()
     # the streaming executor (ROADMAP item 7) is ported
     ex = tprob.make_executor("streaming", tprob.make_problem("logistic"),
                              a.D_c.reshape(-1, 20), a.lab.reshape(-1),
@@ -296,3 +300,26 @@ def test_lasso_fit_launches_k2b_once_on_card():
                  **kw)
         np.testing.assert_allclose(r.x.cpu().numpy(), c.x.numpy(),
                                    rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_shard_map_on_the_card_matches_the_local_solve():
+    """Two gloo ranks sharing the card (K2a once and K3 every iteration on
+    each rank's rows) against the local solve on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    from repro_torch.exec.shard_map import fit_rank
+    from repro_torch.sharding import compat
+    prob = tprob.make_problem("logistic")
+    D, aux = tprob.synth_data(prob, m=20_001, n=37, seed=5)
+    kw = dict(max_iters=60, eps_rel=1e-12, eps_abs=1e-15)
+    ref = tprob.fit_on_executor(prob, "local", D, aux, device="cuda", **kw)
+    ranks = compat.spawn(fit_rank, 2, compat.layout_backend("cuda", 2),
+                         args=([dict(problem="logistic", D=D, aux=aux,
+                                     **kw)], "cuda"),
+                         device="cuda", timeout=300)
+    x = ranks[0][0]["x"]
+    assert np.array_equal(x.view(np.uint32), ranks[1][0]["x"].view(np.uint32))
+    x_ref = ref.x.cpu().numpy()
+    gap = np.abs(x - x_ref).max() / max(1.0, np.abs(x_ref).max())
+    assert ranks[0][0]["iters"] == 60 and gap <= 1e-5, gap

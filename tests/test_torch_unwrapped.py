@@ -304,9 +304,52 @@ def test_fit_cli_cpu(capsys):
     (["--workers", "2"], "ROADMAP item 9"),
     (["--executor", "cluster"], "ROADMAP item 9"),
     (["--obs-dir", "obs"], "ROADMAP item 10"),
-    (["--executor", "shard_map"], "ROADMAP item 8"),
-    (["--multi-device"], "ROADMAP item 8"),
 ])
 def test_fit_cli_names_roadmap_item_for_unported_flags(argv, item):
     with pytest.raises(SystemExit, match=item):
         fit_cli.main(["--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("argv,ranks", [
+    (["--executor", "shard_map"], 2),     # two gloo ranks, spawned
+    (["--multi-device"], 1),              # the deprecated alias: SOLO
+])
+def test_fit_cli_shard_map_cpu(argv, ranks, capsys, monkeypatch):
+    """The shard_map path of the CLI (ROADMAP item 8) fits on the CPU: as
+    many gloo ranks as REPRO_TORCH_CPU_RANKS says, the same x as the
+    local executor's to the parity tolerance (the stop iteration may
+    differ by a few: the residuals near the stop are at rounding level,
+    and the ranks sum in another order)."""
+    monkeypatch.setenv("REPRO_TORCH_CPU_RANKS", str(ranks))
+    base = ["--device", "cpu", "--nodes", "2", "--rows-per-node", "300",
+            "--features", "10", "--iters", "100"]
+    if argv == ["--multi-device"]:
+        with pytest.warns(DeprecationWarning, match="--multi-device"):
+            res = fit_cli.main(base + argv)
+    else:
+        res = fit_cli.main(base + argv)
+    out = capsys.readouterr().out
+    backend = "gloo" if ranks > 1 else "none"     # a world of one: SOLO
+    assert f"shard_map: {ranks} ranks on {backend}" in out \
+        and "train acc:" in out
+    ref = fit_cli.main(base)
+    gap = float((res.x - ref.x).abs().max()) / max(1.0, float(
+        ref.x.abs().max()))
+    assert gap <= 1e-5, gap
+
+
+def test_world_of_one_executor_leaves_no_group(capsys, monkeypatch):
+    """A shard_map executor built outside any group (a world of one) starts
+    no process group, so a later CLI fit in the same process still spawns
+    the ranks REPRO_TORCH_CPU_RANKS asks for."""
+    from repro_torch.exec import problems as tprob
+    prob = tprob.make_problem("logistic")
+    D, aux = tprob.synth_data(prob, m=60, n=5, seed=1)
+    ex = tprob.make_executor("shard_map", prob, D, aux, device="cpu")
+    assert ex.world == 1 and not torch.distributed.is_initialized()
+    monkeypatch.setenv("REPRO_TORCH_CPU_RANKS", "2")
+    fit_cli.main(["--device", "cpu", "--nodes", "2", "--rows-per-node",
+                  "100", "--features", "6", "--iters", "20",
+                  "--executor", "shard_map"])
+    assert "shard_map: 2 ranks on gloo" in capsys.readouterr().out
+    assert not torch.distributed.is_initialized()
