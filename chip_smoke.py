@@ -113,10 +113,34 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               ms/iter beside the local solve's, the reduction's time per
               iteration apart from K3, the setup, the peak device memory
               per rank, the iterations. Then K3 at the world-4 shard's
-              shape (m / 4 rows) against its plain version.
+              shape (m / 4 rows) against its plain version. Then, still on
+              phase 4's D, ``UnwrappedADMM.solve`` for 20 iterations with
+              observability off and on: x bit-identical, 20 telemetry
+              records.
+10. cluster — the cluster runtime (DESIGN.md section 11), after phase 8,
+              on its data saved to a directory (tmpfs when it has room) and
+              memory-mapped by worker processes that share the card; the
+              in-RAM copy is freed first. The star catalog in phase 8's 20
+              blocks over 4 workers for 20 iterations with observability
+              on: x held to phase 8's in-memory x (1e-5), the workers'
+              K3 (all on the ring, blocks x iterations) and K2b (one per
+              block) launches counted in each worker and summed from their
+              telemetry, the workers' block_step and worker_iter spans
+              under the coordinator's collect spans in the merged trace,
+              20 telemetry records stamped cluster, obs_report on the
+              directory. Then at the first 4,194,304 rows (8 blocks): a
+              worker SIGKILLed at iteration 8 (reassigned, x 1e-5 from the
+              in-memory x) and 2 workers with int8 compression (objective
+              2e-2 from the plain one, under 3 x 4 x n bytes an iteration);
+              ``cluster_stats`` on phase 8's lasso store against float64;
+              the CLI ``--executor cluster --workers 2 --obs-dir`` at 2^20
+              x 200 and obs_report on its directory. Printed: ms/iter (the
+              driver's init to its finish), collect time, block_step p50,
+              reduction bytes, spawn and register time, host staging rate,
+              peak device memory per worker, the phase's seconds.
    The LM slices run, qwen3-8b then rwkv6-1.6b, each at full width and
    depth (f32 weights, random from the seed; each freed before the next):
-10. lm main — ``forward`` through the slice's kernel (K4 for qwen3-8b at
+11. lm main — ``forward`` through the slice's kernel (K4 for qwen3-8b at
               B 2 x S 4096, K5 for rwkv6-1.6b at B 8 x T 4096) and
               ``loss_fn``, with the kernel's count set to 0 just before and
               read just after (one launch per layer and forward; K4's
@@ -125,10 +149,10 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               decode steps against ``forward``'s logits; then the same at
               full width, 4 layers and f32 compute with tight bounds
               (K4: all on the FMA route).
-11. serve   — ``repro_torch.launch.serve.main`` at full size (batch 8,
+12. serve   — ``repro_torch.launch.serve.main`` at full size (batch 8,
               prompt 2048, 64 generated tokens): prefill seconds, decode
               ms/step and tok/s.
-12. timing  — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
+13. timing  — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
               bf16, causal) against its plain version and
               ``scaled_dot_product_attention``, and the FMA route on f32
               copies of the same inputs (printed); K5 at the rwkv lm shape
@@ -871,10 +895,12 @@ def loop_clock(ex, dev):
     return marks
 
 
-def clocked_solve(ex, eng, dev, iters, sync=lambda: None):
+def clocked_solve(ex, eng, dev, iters, sync=lambda: None, **solve_kw):
     """``solve_with_executor`` on ``ex`` under ``loop_clock``: (result,
     setup s from the call to the loop, iteration ms per iteration, final s
-    from the loop to the return), the same yardstick on every executor."""
+    from the loop to the return), the same yardstick on every executor.
+    ``eng`` is anything with the solve's ``loss``; ``solve_kw`` go to the
+    driver."""
     import torch
 
     from repro_torch.exec import solve_with_executor
@@ -883,7 +909,8 @@ def clocked_solve(ex, eng, dev, iters, sync=lambda: None):
     sync()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    res = solve_with_executor(ex, loss=eng.loss, tau=0.1, max_iters=iters)
+    res = solve_with_executor(ex, loss=eng.loss, tau=0.1, max_iters=iters,
+                              **solve_kw)
     torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
     it_ms = (marks["stop"] - marks["start"]) * 1e3 / max(res.iters, 1)
@@ -1048,7 +1075,7 @@ def phase_shard_map(torch, rt, reps: int):
                       for c in counts),
                   f"{label}: per rank K2a 1, K3 {k} (all ring) launches: "
                   f"{counts}")
-            check(r0["extra"] == {"shards": world, "backend": backend},
+            check(r0["extra"] == {"shards": world, "group_backend": backend},
                   f"{label}: extra_record {r0['extra']}")
             e = gap(r0["x"])
             if compress:
@@ -1904,11 +1931,13 @@ def phase_ooc(torch, rt, reps: int):
         cut = f" (halved: under {OOC['min_host_gb']} GiB available)"
     print(f"ooc: host memory available {avail:.1f} GiB; star catalog at "
           f"{rows} rows{cut}", flush=True)
-    phase_ooc_dense(torch, rt, reps, rows)
+    data = phase_ooc_dense(torch, rt, reps, rows)
+    cluster = save_cluster_stores(data)
     phase_ooc_resume(torch)
     phase_ooc_sparse(torch, rt, reps)
-    phase_ooc_stats(torch)
+    cluster["stats"] = phase_ooc_stats(torch, cluster["dir"])
     phase_ooc_cli(torch)
+    return cluster
 
 
 def phase_ooc_dense(torch, rt, reps: int, rows: int):
@@ -1951,6 +1980,14 @@ def phase_ooc_dense(torch, rt, reps: int, rows: int):
     mem_s = time.perf_counter() - t0
     check(mem.iters == iters, f"in-memory solve: {mem.iters} = {iters} "
           f"iterations in {mem_s:.2f} s")
+    # phase 10's fault runs: the first rows of the same data, in memory
+    # (their yardstick) and as a host store of their own block height
+    fr = CLUSTER["fault_rows"]
+    sub = solver.solve(D3[:, :fr], lab[:, :fr], max_iters=iters,
+                       record=True)
+    check(sub.iters == iters, f"in-memory solve at {fr} rows: {sub.iters} "
+          f"= {iters} iterations")
+    sub_store = host_store(torch, D2[:fr], a[:fr], CLUSTER["fault_block"])
 
     # K3 at the store-block shape (a full block; the tail is padded to it)
     Db, ab = D2[:br], a[:br]
@@ -2083,9 +2120,12 @@ def phase_ooc_dense(torch, rt, reps: int, rows: int):
           f"floor {k3_bound[0]:.3f} ms)", flush=True)
     record(rt, "K3_admm_iter_store_block", k3_err, k3_ms, p3_ms, k3_bound,
            None)
-    del seng, naive, y, lam, st, mem, store
+    data = {"store": store, "x": mem.x, "sub_store": sub_store,
+            "sub_x": sub.x, "sub_obj": float(sub.history.objective[-1])}
+    del seng, naive, y, lam, st, mem, store, sub, sub_store
     print(f"ooc dense: freed, {free_device_memory(torch):.2f} GB still "
           "allocated", flush=True)
+    return data
 
 
 def phase_ooc_resume(torch):
@@ -2216,10 +2256,12 @@ def phase_ooc_sparse(torch, rt, reps: int):
     free_device_memory(torch)
 
 
-def phase_ooc_stats(torch):
+def phase_ooc_stats(torch, save_dir):
     """SufficientStats.from_store on the lasso at 4,194,304 x 200 (one K2b
     launch per block), FASTA on it, and the Cholesky rank-k update and
-    downdate of a 1,000-row block against a fresh factor."""
+    downdate of a 1,000-row block against a fresh factor. The store is
+    saved under ``save_dir`` for phase 10; returns its path, fingerprint
+    and the float64 (G, c)."""
     from repro_torch.core.fasta import transpose_reduction_lasso
     from repro_torch.core.gram import gram_factor
     from repro_torch.data.synthetic import lasso_problem
@@ -2258,6 +2300,9 @@ def phase_ooc_stats(torch):
     e_c = rel_err(torch, stats.c, c64)
     check(e_g <= 1e-5 and e_c <= 1e-5, f"stats (G, c) vs float64: "
           f"{e_g:.2e}, {e_c:.2e} <= 1e-5")
+    saved = {"path": store.save(f"{save_dir}/lasso"),
+             "fingerprint": store.fingerprint, "rows": m,
+             "G64": G64, "c64": c64}
     t0 = time.perf_counter()
     fr = transpose_reduction_lasso(stats.G, stats.c, mu, iters=LASSO_ITERS)
     torch.cuda.synchronize()
@@ -2286,6 +2331,7 @@ def phase_ooc_stats(torch):
           f"downdate {e_dn:.2e} ({dn_s:.2f} s) vs a fresh factor <= 1e-4")
     del D2, b, prob, store, stats, G64, c64, L, L_up, L_dn, L_fresh, B, bb
     free_device_memory(torch)
+    return saved
 
 
 def phase_ooc_cli(torch):
@@ -2324,6 +2370,304 @@ def phase_ooc_cli(torch):
               f" rows: {r1.iters} iterations ({s1:.1f} s), then --resume "
               f"({s2:.1f} s): the same x")
     free_device_memory(torch)
+
+
+# The cluster runtime (DESIGN.md section 11) on phase 8's data: the star
+# catalog saved to a directory (tmpfs when it has room) and memory-mapped
+# by worker processes that share the card. Main solve: 4 workers over
+# phase 8's 20 blocks, 20 iterations, observability on. Faults and
+# compression at the first 4,194,304 rows (8 blocks of 524,288); the stats
+# path on phase 8's lasso store; the CLI at 2^20 x 200.
+CLUSTER = dict(workers=4, iters=20, fault_rows=1 << 22, fault_block=1 << 19,
+               die_worker=2, die_at=8, compress_workers=2, stats_workers=2,
+               cli_nodes=16, cli_rows=65536, cli_n=200, cli_iters=10,
+               heartbeat_timeout_s=120, register_timeout_s=300,
+               tmpfs="/dev/shm")
+# a worker's span may open this long before the coordinator's collect span
+# of the same iteration: the broadcast is sent just before the span opens,
+# and the coordinator's thread can wait several of the interpreter's 5 ms
+# switch intervals for its lock (its receiver threads unpickle heartbeats)
+SPAN_SLACK_US = 50_000
+
+
+def save_cluster_stores(data):
+    """Save phase 8's star-catalog stores for phase 10 to a directory (tmpfs
+    when it has room, else the temporary directory) and drop the in-RAM
+    copies, so the host holds the data once when the workers map it."""
+    import shutil
+    import tempfile
+
+    need = data["store"].nbytes + data["sub_store"].nbytes
+    base, tmpfs = tempfile.gettempdir(), CLUSTER["tmpfs"]
+    if Path(tmpfs).is_dir() and shutil.disk_usage(tmpfs).free > 2 * need:
+        base = tmpfs
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_", dir=base)
+    t0 = time.perf_counter()
+    out = {"dir": root, "x": data["x"], "sub_x": data["sub_x"],
+           "sub_obj": data["sub_obj"],
+           "main": data["store"].save(f"{root}/star"),
+           "sub": data["sub_store"].save(f"{root}/star_sub")}
+    print(f"cluster: stores saved under {root} ({need / 1e9:.2f} GB) in "
+          f"{time.perf_counter() - t0:.1f} s; in-RAM copies freed",
+          flush=True)
+    data.clear()
+    gc.collect()
+    return out
+
+
+def phase_obs_main(torch, rt):
+    """The main path with observability on and off: ``UnwrappedADMM.solve``
+    on phase 4's D for 20 iterations, x bit-identical, 20 telemetry
+    records stamped ``local``; ms/iter of both, one clock each."""
+    import tempfile
+
+    from repro_torch.core.prox import make_logistic
+    from repro_torch.core.unwrapped import UnwrappedADMM
+    from repro_torch.obs import TELEMETRY_FILE, Observability, read_jsonl
+
+    D, lab = rt["main"][:2]
+    iters = CLUSTER["iters"]
+    solver = UnwrappedADMM(loss=make_logistic(), tau=0.1, eps_rel=1e-12,
+                           eps_abs=1e-15)
+    solver.solve(D, lab, max_iters=2)            # warm-up
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for label in ("off", "on"):
+            obs = Observability(dir=tmp, process_name="chip_smoke") \
+                if label == "on" else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solver.solve(D, lab, max_iters=iters, obs=obs)
+            torch.cuda.synchronize()
+            runs[label] = (res, (time.perf_counter() - t0) * 1e3 / iters)
+            if obs is not None:
+                obs.finish()
+        recs = [r for r in read_jsonl(f"{tmp}/{TELEMETRY_FILE}")
+                if "iter" in r]
+    (off, off_ms), (on, on_ms) = runs["off"], runs["on"]
+    print(f"obs main path: {iters} iterations, {off_ms:.2f} ms/iter obs "
+          f"off, {on_ms:.2f} ms/iter obs on (setup included)", flush=True)
+    check(on.iters == off.iters == iters and torch.equal(on.x, off.x),
+          "obs on/off on the main path: x bit-identical after "
+          f"{iters} iterations")
+    check(len(recs) == iters and all(r["executor"] == "local"
+                                     for r in recs),
+          f"obs on: {len(recs)} telemetry records, each stamped local")
+
+
+def phase_cluster(torch, rt, cl):
+    """Phase 10: the cluster runtime on phase 8's data (module docstring)."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.cluster.coordinator import (
+        ClusterConfig,
+        ClusterCoordinator,
+        cluster_solve,
+        cluster_stats,
+    )
+    from repro_torch.exec import ClusterExecutor
+    from repro_torch.launch import fit as fit_cli
+    from repro_torch.launch import obs_report
+    from repro_torch.obs import (
+        TELEMETRY_FILE,
+        TRACE_FILE,
+        load_trace,
+        merged_histogram,
+        read_jsonl,
+        snapshot_histograms,
+    )
+
+    c = CLUSTER
+    t_phase = time.perf_counter()
+    tiny = dict(eps_rel=1e-12, eps_abs=1e-15)
+    limits = dict(heartbeat_timeout_s=c["heartbeat_timeout_s"],
+                  register_timeout_s=c["register_timeout_s"])
+    logistic = {"name": "logistic"}
+    dev = torch.device("cuda")
+    root = cl["dir"]
+    try:
+        # -- the main solve: 4 workers, observability on -------------------
+        obs_dir = f"{root}/obs"
+        coord = ClusterCoordinator(cl["main"], logistic, tau=0.1, **tiny,
+                                   config=ClusterConfig(
+                                       n_workers=c["workers"],
+                                       obs_dir=obs_dir, **limits))
+        store = coord.store
+        t0 = time.perf_counter()
+        coord.start()
+        spawn_s = time.perf_counter() - t0
+        ex = ClusterExecutor(coord)
+        res, setup_s, it_ms, _ = clocked_solve(
+            ex, coord, dev, c["iters"], obs=coord.obs, record=True, **tiny)
+        wall = time.perf_counter() - t0
+        tel = coord._telemetry(res.iters, wall)
+        collects = [e["dur"] for e in coord.obs.tracer.events()
+                    if e.get("ph") == "X" and e["name"] == "collect"]
+        coord.shutdown()
+        per = coord._per_worker_telemetry()
+        snap = coord.obs.registry.snapshot()
+        steps = merged_histogram(snapshot_histograms(
+            snap, "worker.block_step_s"))
+        e_x = rel_norm(torch, res.x, cl["x"])
+        print(f"cluster main: {store.m} x {store.n} in {store.nblocks} "
+              f"blocks of {store.block_rows} rows over {c['workers']} "
+              f"workers sharing the card; spawn + register {spawn_s:.2f} s, "
+              f"setup (stats reduce, K2b per block) {setup_s:.2f} s, "
+              f"{it_ms:.1f} ms/iter (driver's init to its finish), "
+              f"collect {statistics.mean(collects) / 1e3:.1f} ms/iter, "
+              f"block_step p50 {steps.quantile(0.5) * 1e3:.1f} ms, "
+              f"reduction {tel['reduction_rx_bytes_per_iter']:.0f} B/iter "
+              f"at the coordinator", flush=True)
+        stage_b = sum(w["stage_bytes"] for w in per.values())
+        stage_s = sum(w["stage_s"] for w in per.values())
+        gbs = lambda b, s: f"{b / s / 1e9:.2f} GB/s" if s else "not measured"
+        for wid, w in sorted(per.items()):
+            peak = w["peak_device_bytes"]
+            peak = "not measured" if peak is None else \
+                f"{peak / 2**20:.1f} MiB"
+            print(f"cluster worker {wid}: {w['iters']} iterations, "
+                  f"block_step p50 {w['block_step_ms']['p50']:.1f} ms, "
+                  f"host staging {w['stage_bytes'] / 1e9:.2f} GB in "
+                  f"{w['stage_s']:.2f} s "
+                  f"({gbs(w['stage_bytes'], w['stage_s'])}), peak device "
+                  f"memory {peak}, launches {w['kernel_launches']}",
+                  flush=True)
+        print(f"cluster staging: {stage_b / 1e9:.1f} GB staged host to card "
+              f"by all workers (every block once for the stats and once an "
+              f"iteration), {gbs(stage_b, stage_s)} per worker while "
+              f"staging; the card took bytes(D) an iteration, "
+              f"{gbs(store.m * store.n * 4, it_ms / 1e3)} over the four",
+              flush=True)
+        check(res.iters == c["iters"] and e_x <= 1e-5,
+              f"cluster x vs the in-memory x after {res.iters} iterations: "
+              f"rel {e_x:.2e} <= 1e-5")
+        launches = {}
+        for w in per.values():
+            for kname, cnt in w["kernel_launches"].items():
+                launches[kname] = launches.get(kname, 0) + cnt
+        want = {"K3_ring": store.nblocks * c["iters"],
+                "K2b": store.nblocks}
+        check(launches == want, f"cluster kernels counted in the workers: "
+              f"{launches} == {want}")
+        check(not tel["deaths"] and tel["workers_alive"] == c["workers"],
+              f"cluster: {tel['workers_alive']} workers alive, no deaths")
+        recs = [r for r in read_jsonl(f"{obs_dir}/{TELEMETRY_FILE}")
+                if "iter" in r]
+        check(len(recs) == c["iters"] and all(r["executor"] == "cluster"
+                                              for r in recs),
+              f"telemetry: {len(recs)} records, each stamped cluster")
+        events = [e for e in load_trace(f"{obs_dir}/{TRACE_FILE}")
+                  if e.get("ph") == "X"]
+        spans = {}
+        for e in events:
+            spans.setdefault(e["name"], []).append(e)
+        coll = {e["args"]["k"]: e for e in spans.get("collect", [])}
+
+        inner = spans.get("worker_iter", []) + spans.get("block_step", [])
+        pids = {e["pid"] for e in inner}
+        # how far each worker span starts before / ends after the collect
+        # span of its iteration (us; at most the slack when it is under it)
+        lead = max(coll[e["args"]["k"]]["ts"] - e["ts"] for e in inner
+                   if e["args"]["k"] in coll)
+        over = max(e["ts"] + e["dur"] - coll[e["args"]["k"]]["ts"]
+                   - coll[e["args"]["k"]]["dur"] for e in inner
+                   if e["args"]["k"] in coll)
+        check(len(coll) == c["iters"] and len(pids) == c["workers"]
+              and len(spans.get("block_step", [])) ==
+              store.nblocks * c["iters"]
+              and all(e["args"]["k"] in coll for e in inner)
+              and lead <= SPAN_SLACK_US and over <= SPAN_SLACK_US,
+              f"trace: {len(spans.get('block_step', []))} block_step and "
+              f"{len(spans.get('worker_iter', []))} worker_iter spans of "
+              f"{len(pids)} workers under the coordinator's "
+              f"{len(coll)} collect spans (at most {lead / 1e3:.2f} ms "
+              f"before one opens, {over / 1e3:.2f} ms after one closes; "
+              f"slack {SPAN_SLACK_US / 1e3:.0f} ms)")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            obs_report.main([obs_dir])
+        check(f"iterations: {c['iters']}" in buf.getvalue(),
+              "obs_report renders the cluster run directory")
+        del coord, ex, res
+
+        # -- SIGKILL of one worker mid-solve ------------------------------
+        t0 = time.perf_counter()
+        kill = cluster_solve(cl["sub"], None, logistic, tau=0.1,
+                             max_iters=c["iters"], **tiny,
+                             config=ClusterConfig(
+                                 n_workers=c["workers"], worker_overrides={
+                                     c["die_worker"]: {
+                                         "die_at_iter": c["die_at"]}},
+                                 **limits))
+        t = kill.telemetry
+        e_k = rel_norm(torch, torch.from_numpy(kill.x).to(dev),
+                       cl["sub_x"])
+        print(f"cluster SIGKILL: worker {c['die_worker']} killed at "
+              f"iteration {c['die_at']} of {kill.iters}; deaths "
+              f"{t['deaths']}, {t['blocks_reassigned']} blocks reassigned, "
+              f"{t['iteration_retries']} retries, recovered in "
+              f"{t['recovery']['time_to_recover_s']} s; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(t["deaths"] == [c["die_worker"]] and t["blocks_reassigned"] >= 1
+              and kill.iters == c["iters"] and e_k <= 1e-5,
+              f"SIGKILL recovered: x vs the in-memory x at "
+              f"{c['fault_rows']} rows: rel {e_k:.2e} <= 1e-5")
+
+        # -- int8 error-feedback compression ------------------------------
+        t0 = time.perf_counter()
+        comp = cluster_solve(cl["sub"], None, logistic, tau=0.1,
+                             max_iters=c["iters"], **tiny,
+                             config=ClusterConfig(
+                                 n_workers=c["compress_workers"],
+                                 compress=True, **limits))
+        obj = comp.history["objective"][-1]
+        e_o = abs(obj - cl["sub_obj"]) / abs(cl["sub_obj"])
+        per_iter = comp.telemetry["reduction_rx_bytes_per_iter"]
+        print(f"cluster int8: objective {obj:.9g} (plain {cl['sub_obj']:.9g})"
+              f", reduction {per_iter:.0f} B/iter, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(e_o <= 2e-2 and per_iter < 3 * 4 * store.n,
+              f"compressed objective rel {e_o:.2e} <= 2e-2 and "
+              f"{per_iter:.0f} < {3 * 4 * store.n} B/iter")
+
+        # -- sufficient statistics over the cluster ----------------------
+        sv = cl["stats"]
+        t0 = time.perf_counter()
+        st, _ = cluster_stats(sv["path"], None, config=ClusterConfig(
+            n_workers=c["stats_workers"], **limits))
+        e_g = gram_err(torch, st.G, sv["G64"])
+        e_c = rel_err(torch, st.c, sv["c64"])
+        check(st.fingerprint == sv["fingerprint"] and st.rows == sv["rows"]
+              and e_g <= 1e-5 and e_c <= 1e-5,
+              f"cluster stats of the lasso store ({sv['rows']} rows, "
+              f"{time.perf_counter() - t0:.1f} s): fingerprint merged, "
+              f"(G, c) vs float64 {e_g:.2e}, {e_c:.2e} <= 1e-5")
+
+        # -- the CLI ------------------------------------------------------
+        cli_dir = f"{root}/cli_obs"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            r = fit_cli.main(["--executor", "cluster", "--workers", "2",
+                              "--obs-dir", cli_dir, "--nodes",
+                              str(c["cli_nodes"]), "--rows-per-node",
+                              str(c["cli_rows"]), "--features",
+                              str(c["cli_n"]), "--iters",
+                              str(c["cli_iters"]), "--seed", str(SEED)])
+            obs_report.main([cli_dir])
+        for line in buf.getvalue().strip().splitlines()[:8]:
+            print(f"cli cluster: {line}", flush=True)
+        check(r.x.is_cuda and bool(torch.isfinite(r.x).all())
+              and r.iters == c["cli_iters"]
+              and f"iterations: {c['cli_iters']}" in buf.getvalue(),
+              f"cli --executor cluster --workers 2 at "
+              f"{c['cli_nodes'] * c['cli_rows']} rows "
+              f"({time.perf_counter() - t0:.1f} s) and obs_report on it")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"cluster phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 # K4's tensor-core kernel against the plain version with P rounded to bf16
@@ -2916,13 +3260,15 @@ def main(argv=None):
     phase_main(torch, rt, args.rows, ITERS)
     phase_timing(torch, rt, REPS)
     phase_shard_map(torch, rt, REPS)
+    phase_obs_main(torch, rt)
     # the ADMM main path's D (20.6 GB) goes before the LM weights
     del rt["main"]
     print(f"admm: freed, {free_device_memory(torch):.2f} GB still "
           "allocated", flush=True)
     phase_problems(torch, rt, REPS)
     phase_sparse(torch, rt, REPS)
-    phase_ooc(torch, rt, REPS)
+    cluster = phase_ooc(torch, rt, REPS)
+    phase_cluster(torch, rt, cluster)
     for arch, spec in LM.items():
         sh = spec["shapes"]["smoke" if args.lm_smoke else "full"]
         phase_lm(torch, rt, arch, sh, args.lm_smoke)

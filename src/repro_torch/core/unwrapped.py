@@ -23,7 +23,9 @@ engine's sparse body (K6 on the card), with the Gram set up on the host,
 and y / lam come back as (1, m). ``device`` (``"cuda"`` by default) is
 where the solve runs; inputs elsewhere are moved there once, and asking for
 ``cuda`` without a GPU raises. ``solve_streaming`` is the out-of-core
-driver over a host block store (``engine/streaming.py``).
+driver over a host block store (``engine/streaming.py``). Every driver
+takes ``obs`` (:class:`repro_torch.obs.Observability`), handled outside
+the iteration loop as in the reference.
 """
 from __future__ import annotations
 
@@ -156,10 +158,24 @@ class UnwrappedADMM:
         streaming ``rmatvec``). No per-iteration host sync: the history
         stays on the device until the end. ``D`` is node-stacked dense
         (N, m_i, n) or a flat :class:`BlockCSR` (y / lam come back as
-        (1, m))."""
-        if obs is not None:
-            raise NotImplementedError("observability (repro.obs) is not "
-                                      "ported yet (ROADMAP item 10)")
+        (1, m)).
+
+        ``obs`` is handled entirely OUTSIDE the loop: one span around it
+        (closed after a sync, so it reads device time), then the recorded
+        history is streamed to the telemetry sink."""
+        if obs is None or not obs.enabled:
+            return self._run(D, aux, iters, x0, record)
+        with obs.span("admm_run", iters=iters,
+                      sparse=isinstance(D, BlockCSR)):
+            res = self._run(D, aux, iters, x0, record)
+            if res.x.device.type == "cuda":
+                torch.cuda.synchronize(res.x.device)
+        obs.inc("admm.runs")
+        if res.history is not None:
+            obs.write_history(res.history, tau=self.tau, rho=self.rho)
+        return res
+
+    def _run(self, D, aux, iters, x0, record) -> ADMMResult:
         D, aux, x0 = (self._to_device(D), self._to_device(aux),
                       self._to_device(x0))
         if isinstance(D, BlockCSR):
@@ -232,12 +248,27 @@ class UnwrappedADMM:
         ex = LocalExecutor(self.engine, self._to_device(D),
                            aux=self._to_device(aux),
                            gram_block_rows=self.gram_block_rows)
-        return solve_with_executor(
-            ex, loss=self.loss, tau=self.tau, rho=self.rho,
-            eps_rel=self.eps_rel, eps_abs=self.eps_abs,
-            max_iters=max_iters, x0=self._to_device(x0), record=record,
-            reg=reg, checkpoint_dir=checkpoint_dir,
-            checkpoint_every=checkpoint_every, resume=resume, obs=obs)
+
+        def _drive(obs_arg):
+            return solve_with_executor(
+                ex, loss=self.loss, tau=self.tau, rho=self.rho,
+                eps_rel=self.eps_rel, eps_abs=self.eps_abs,
+                max_iters=max_iters, x0=self._to_device(x0), record=record,
+                reg=reg, checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, resume=resume,
+                obs=obs_arg)
+
+        if obs is None or not obs.enabled:
+            return _drive(None)
+        with obs.span("admm_solve", max_iters=max_iters,
+                      sparse=isinstance(D, BlockCSR)):
+            res = _drive(obs)
+            if res.x.device.type == "cuda":
+                torch.cuda.synchronize(res.x.device)
+        obs.inc("admm.solves")
+        obs.record(event="solve_done", iters=int(res.iters),
+                   tau=self.tau, rho=self.rho)
+        return res
 
     # -- out-of-core driver: D streams from a host/disk block store --------
     def solve_streaming(

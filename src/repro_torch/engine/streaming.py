@@ -172,8 +172,8 @@ def _block_fns(engine, has_aux: bool, want_dual: bool = True,
     return step, init, gram
 
 
-# Public alias: the cluster worker (ROADMAP item 9) drives the same
-# per-block fused body over its owned blocks.
+# Public alias: the cluster worker drives the same per-block fused body
+# over its owned blocks.
 block_step_fns = _block_fns
 
 
@@ -337,18 +337,34 @@ class StreamingEngine:
         reference to a block before asking for the next one: that is what
         bounds the blocks in flight."""
         depth = self.prefetch if overlap in (None, True) else 0
-        compute = torch.cuda.current_stream(self.dev) if self._cuda else None
         for item in staged(range(store.nblocks), self._stage(store), depth):
             k, D_b, ev = item
             item = None
-            if ev is not None:
-                if depth == 0:
-                    ev.synchronize()
-                compute.wait_event(ev)
-                for t in _tensors(D_b):
-                    t.record_stream(compute)
+            self._on_compute(D_b, ev, wait_host=depth == 0)
             yield k, D_b
             D_b = None
+
+    def stage_block(self, store: ShardedMatrixStore, k: int):
+        """Block ``k`` alone, staged and ready on the compute stream: the
+        cluster worker's path, which visits the blocks it owns one at a
+        time and reads its results back before the next one (so the
+        pinned slots are free again by then)."""
+        _, D_b, ev = self._stage(store)(k)
+        self._on_compute(D_b, ev, wait_host=False)
+        return D_b
+
+    def _on_compute(self, D_b, ev, wait_host: bool):
+        """Make a staged block safe to use on the compute stream: wait for
+        its H2D there (and on the host too when ``wait_host``), and tell the
+        caching allocator which stream reads its memory."""
+        if ev is None:
+            return
+        if wait_host:
+            ev.synchronize()
+        compute = torch.cuda.current_stream(self.dev)
+        compute.wait_event(ev)
+        for t in _tensors(D_b):
+            t.record_stream(compute)
 
     def _aux(self, store: ShardedMatrixStore, dtype) -> Optional[Tensor]:
         """The store's labels as one host tensor (pinned on the card),

@@ -1,8 +1,9 @@
 """repro_torch.exec — the SolveExecutor contract, the one shared ADMM
 solve loop (``solve_with_executor``, DESIGN.md section 14) and
-problems-on-executors. The local,
-streaming (out-of-core) and shard_map (rows over the ranks of a process
-group) topologies are ported; cluster is ROADMAP item 9."""
+problems-on-executors, over four topologies: local (device-resident
+data), streaming (out-of-core), shard_map (rows over the ranks of a
+process group) and cluster (worker processes behind the fault-tolerant
+runtime of :mod:`repro_torch.cluster`)."""
 from repro_torch.exec.base import (
     Regularizer,
     SolveExecutor,
@@ -12,6 +13,7 @@ from repro_torch.exec.base import (
     power_lmax,
     solve_with_executor,
 )
+from repro_torch.exec.cluster import ClusterExecutor
 from repro_torch.exec.local import LocalExecutor
 from repro_torch.exec.problems import (
     EXECUTORS,
@@ -25,6 +27,7 @@ from repro_torch.exec.shard_map import ShardMapExecutor, default_group
 from repro_torch.exec.streaming import StreamingExecutor
 
 __all__ = [
+    "ClusterExecutor",
     "EXECUTORS",
     "ExecProblem",
     "LocalExecutor",

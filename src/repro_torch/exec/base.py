@@ -14,20 +14,23 @@ warm-start d) and ``sweep(x, k)`` (one fused pass, returning a
 Small hooks split checkpoint ownership: the backend owns the SHAPES of
 its state, the driver the CADENCE (every ``checkpoint_every``
 iterations through :class:`~repro_torch.checkpoint.CheckpointManager`) and
-the resume validation. Not ported yet: observability (``repro.obs`` may
-not be imported; ROADMAP item 10); asking for it raises.
+the resume validation. The driver also owns the obs spans and the
+per-iteration telemetry (:mod:`repro_torch.obs`), stamped with the
+executor's name and backend.
 """
 from __future__ import annotations
 
 import abc
 import dataclasses
 import math
+import time
 from typing import Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.core import gram as gram_lib
 from repro_torch.engine.streaming import SweepResult
+from repro_torch.obs import NOOP
 
 Tensor = torch.Tensor
 
@@ -209,22 +212,27 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
     :class:`~repro_torch.core.unwrapped.ADMMResult`.
 
     The per-iteration scalars reach the host in ONE transfer: the norms
-    are taken on the device and stacked, then ``.tolist()`` syncs once."""
+    are taken on the device and stacked, then ``.tolist()`` syncs once.
+    ``obs`` (an enabled :class:`repro_torch.obs.Observability`) adds the
+    reference's spans (``gram_setup``, ``init_from_x0``, ``x_solve``,
+    ``sweep``), latency histograms and one telemetry record per iteration,
+    all read from that same transfer: no extra device work, no extra sync.
+    On the card a span ends where its host code ends, so ``x_solve`` times
+    the launches of the x-update, not its kernels (PERF.md, section 3)."""
     from repro_torch.core.unwrapped import ADMMHistory, ADMMResult
 
-    if obs is not None:
-        raise NotImplementedError(
-            "observability (repro.obs) is not ported yet (ROADMAP item 10)")
+    obs = obs if obs is not None else NOOP
     m, n, K = ex.m, ex.n, ex.ycols
     m_eff, n_eff = m * K, n * K
 
-    G = ex.setup()
-    if reg is None:
-        L = gram_lib.gram_factor(G, ridge=rho / tau)
-        lmax = None
-    else:
-        L = None
-        lmax = power_lmax(G)
+    with obs.span("gram_setup", executor=ex.name):
+        G = ex.setup()
+        if reg is None:
+            L = gram_lib.gram_factor(G, ridge=rho / tau)
+            lmax = None
+        else:
+            L = None
+            lmax = power_lmax(G)
 
     manager = None
     if checkpoint_dir is not None:
@@ -245,20 +253,29 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
         ex.resume_iter = k
         d = ex.restore_state(k, tree)
         x = tree["x"]            # returned as-is if no iterations remain
+    elif x0 is not None:
+        with obs.span("init_from_x0", executor=ex.name):
+            d = ex.init(x0)
+        x = ex.zero_x()
     else:
-        d = ex.init(x0)
+        d = ex.init(None)
         x = ex.zero_x()
 
     pad_obj = ex.pad_objective()
     objs, rs, ss = [], [], []
     k_conv = -1
     while k < max_iters:
-        if reg is None:
-            x = gram_lib.gram_solve(L, d)
-        else:
-            x = composite_x_update(G, lmax, d, x, tau, reg.prox,
-                                   reg.inner_iters)
-        sw = ex.sweep(x, k + 1)
+        t_it = time.perf_counter()
+        with obs.span("x_solve", k=k + 1):
+            if reg is None:
+                x = gram_lib.gram_solve(L, d)
+            else:
+                x = composite_x_update(G, lmax, d, x, tau, reg.prox,
+                                       reg.inner_iters)
+        t_sw = time.perf_counter()
+        with obs.span("sweep", k=k + 1):
+            sw = ex.sweep(x, k + 1)
+        sweep_s = time.perf_counter() - t_sw
         if sw is None:           # degraded stop: best-so-far x
             break
         d = sw.d
@@ -276,15 +293,27 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
                                                              vals[3])
         eps_dual = math.sqrt(n_eff) * eps_abs + eps_rel * tau * vals[4]
         k += 1
-        if record:
+        if record or obs.enabled:
             obj = vals[5] - pad_obj
             if rho:
                 obj += 0.5 * rho * vals[6]
             if reg is not None:
                 obj += vals[-1]
-            objs.append(obj)
-            rs.append(r)
-            ss.append(s)
+            if record:
+                objs.append(obj)
+                rs.append(r)
+                ss.append(s)
+            if obs.enabled:
+                dt = time.perf_counter() - t_it
+                obs.observe(f"{ex.name}.sweep_s", sweep_s)
+                obs.observe(f"{ex.name}.iter_s", dt)
+                obs.record(iter=k, objective=obj, primal_res=r,
+                           dual_res=s, eps_pri=float(eps_pri),
+                           eps_dual=float(eps_dual), tau=tau, rho=rho,
+                           iter_s=round(dt, 6),
+                           sweep_s=round(sweep_s, 6),
+                           executor=ex.name, backend=ex.backend,
+                           **ex.extra_record())
         if manager is not None and checkpoint_every \
                 and k % checkpoint_every == 0:
             state = ex.state_arrays(k)

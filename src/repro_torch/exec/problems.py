@@ -4,9 +4,9 @@ port of ``repro/exec/problems.py``.
 A problem is (picklable loss spec, tau, rho, optional x-space regularizer
 factory) — nothing topology-specific. ``fit_on_executor`` builds the
 :class:`~repro_torch.exec.base.SolveExecutor` for the requested topology
-and hands it to the one shared solve loop, ``solve_with_executor``. The
-local, streaming and shard_map topologies are ported; cluster is ROADMAP
-item 9 and raises.
+and hands it to the one shared solve loop, ``solve_with_executor``;
+``cluster`` goes through :func:`repro_torch.cluster.coordinator
+.cluster_solve`, which owns its worker processes.
 """
 from __future__ import annotations
 
@@ -24,8 +24,6 @@ from repro_torch.exec.base import (
 )
 
 EXECUTORS = ("local", "streaming", "shard_map", "cluster")
-# executor -> ROADMAP item that ports it
-EXECUTOR_ITEMS = {"cluster": 9}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,13 +141,33 @@ def fit_on_executor(prob: ExecProblem, executor: str, D, aux=None, *,
                     checkpoint_every: int = 0, resume: bool = False,
                     n_workers: int = 2, store_dir: Optional[str] = None,
                     cluster_config=None, obs=None, **opts):
-    """Solve ``prob`` over ``D``/``aux`` on the named executor; returns an
-    :class:`~repro_torch.core.unwrapped.ADMMResult`."""
-    if executor == "cluster":
-        raise NotImplementedError("the cluster executor is not ported yet "
-                                  "(ROADMAP item 9)")
+    """Solve ``prob`` over ``D``/``aux`` on the named executor. Returns
+    an :class:`~repro_torch.core.unwrapped.ADMMResult` (local / streaming
+    / shard_map) or a :class:`~repro_torch.cluster.coordinator
+    .ClusterResult` (cluster) — both carry ``.x`` and ``.iters``. The
+    cluster runs ``n_workers`` workers on ``opts["device"]`` (default
+    ``cuda``) unless ``cluster_config`` says otherwise; its coordinator
+    owns the observability run directory (``ClusterConfig.obs_dir``), so
+    ``obs`` does not reach it, as in the reference."""
     n = int(D.shape[-1])
     reg = prob.reg(n)
+    if executor == "cluster":
+        from repro_torch.cluster.coordinator import (
+            ClusterConfig,
+            cluster_solve,
+        )
+        cfg = cluster_config or ClusterConfig(
+            n_workers=n_workers, device=str(opts.get("device", "cuda")),
+            backend=opts.get("backend", "auto"))
+        if checkpoint_dir is not None:
+            cfg = dataclasses.replace(cfg, checkpoint_dir=checkpoint_dir,
+                                      checkpoint_every=checkpoint_every,
+                                      resume=resume)
+        return cluster_solve(
+            D, aux, loss=prob.loss_spec, tau=prob.tau, rho=prob.rho,
+            max_iters=max_iters, store_dir=store_dir, config=cfg,
+            eps_rel=eps_rel, eps_abs=eps_abs, record=record, x0=x0,
+            reg=reg)
     ex = make_executor(executor, prob, D, aux, **opts)
     if x0 is not None:
         x0 = on_device(x0, ex.device)

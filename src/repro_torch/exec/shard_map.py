@@ -153,7 +153,7 @@ class ShardMapExecutor(SolveExecutor):
         return float(self.engine.loss.value(z, a if self.has_aux else None))
 
     def extra_record(self) -> dict:
-        return {"shards": self.world, "backend": self.group.backend}
+        return {"shards": self.world, "group_backend": self.group.backend}
 
     # -- checkpointing ------------------------------------------------------
     def _global(self, t: Tensor) -> Tensor:
@@ -215,5 +215,5 @@ def fit_rank(calls: Sequence[dict], device: str = "cuda") -> List[dict]:
                     "objective": None if res.history is None
                     else res.history.objective,
                     "extra": {"shards": group.world,
-                              "backend": group.backend}})
+                              "group_backend": group.backend}})
     return out

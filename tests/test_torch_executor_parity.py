@@ -17,8 +17,9 @@ sup-norm), on the shared problems of ``tests/exec_fixtures.py``:
 The shard_map column runs on gloo ranks on the CPU at world 4 (the
 world-size change resumes at world 3); the ranks are spawned once for the
 module and run every case, and each case's x and iteration count must be
-bitwise equal on every rank. The cluster column waits for ROADMAP item 9;
-``test_telemetry_stamps_executor`` waits for observability (item 10)."""
+bitwise equal on every rank. The cluster column (worker processes) is in
+``tests/test_torch_executor_parity_cluster.py``; ``test_telemetry_stamps_
+executor`` covers all four executors here."""
 import jax
 
 jax.config.update("jax_platform_name", "cpu")
@@ -203,7 +204,7 @@ def test_shard_map_cold_parity(problem, ref_cache, shard_runs):
     r = shard_runs["cold", problem][0]
     gap = rel_gap(ref_cache(problem), r["x"])
     assert gap <= PARITY_TOL, f"{problem} on shard_map: gap {gap:.3e}"
-    assert r["extra"] == {"shards": WORLD, "backend": "gloo"}
+    assert r["extra"] == {"shards": WORLD, "group_backend": "gloo"}
 
 
 @pytest.mark.parametrize("problem", NEW_PROBLEMS)
@@ -249,3 +250,32 @@ def test_shard_map_ranks_agree_bitwise(shard_runs):
             assert r["iters"] == ranks[0]["iters"], key
             assert np.array_equal(r["x"].view(np.uint32),
                                   ranks[0]["x"].view(np.uint32)), key
+
+
+@pytest.mark.parametrize("executor", ["local", "streaming", "shard_map",
+                                      "cluster"])
+def test_telemetry_stamps_executor(executor, tmp_path):
+    """Every telemetry record carries the executor name + resolved
+    engine backend, so mixed-topology runs stay attributable. The
+    cluster's coordinator owns its run directory (``obs_dir``), as in the
+    reference; its two workers have the cluster tests' limits."""
+    from repro_torch.cluster.coordinator import ClusterConfig
+    from repro_torch.obs import Observability, read_jsonl
+    prob, D, aux = _port_problem("logistic")
+    rundir = str(tmp_path / "obs")
+    kw = dict(max_iters=5, eps_rel=1e-12, eps_abs=1e-15, device="cpu")
+    if executor == "cluster":
+        tprob.fit_on_executor(prob, executor, D, aux, cluster_config=(
+            ClusterConfig(n_workers=2, device="cpu", obs_dir=rundir,
+                          heartbeat_timeout_s=30, register_timeout_s=300)),
+            store_dir=str(tmp_path / "store"), **kw)
+    else:
+        obs = Observability.create(rundir)
+        tprob.fit_on_executor(prob, executor, D, aux, obs=obs, **kw)
+        obs.finish()
+    recs = [r for r in read_jsonl(str(tmp_path / "obs" / "telemetry.jsonl"))
+            if "iter" in r]
+    assert len(recs) == 5, "no telemetry written"
+    for rec in recs:
+        assert rec["executor"] == executor
+        assert rec["backend"]       # resolved engine backend, non-empty

@@ -45,7 +45,12 @@ def test_port_imports_no_jax_and_no_repro():
                  "exec.problems", "service", "service.registry",
                  "data.store", "checkpoint.manager", "service.stats",
                  "engine.streaming", "exec.streaming", "cluster.compress",
-                 "sharding.compat", "core.distributed", "exec.shard_map"):
+                 "sharding.compat", "core.distributed", "exec.shard_map",
+                 "obs", "obs.context", "obs.metrics", "obs.telemetry",
+                 "obs.trace", "obs.flight", "obs.scrape", "obs.slo",
+                 "launch.obs_report", "cluster.transport", "cluster.chaos",
+                 "cluster.membership", "cluster.reduction", "cluster.worker",
+                 "cluster.coordinator", "exec.cluster"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
@@ -57,6 +62,42 @@ def test_port_imports_no_jax_and_no_repro():
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_cluster_worker_imports_no_jax_and_no_repro(tmp_path):
+    """A cluster solve whose coordinator and spawned worker run with
+    ``jax`` and ``repro`` poisoned on the path (importing either raises):
+    the worker process loads neither, and the solve completes."""
+    poison = tmp_path / "poison"
+    for pkg in ("jax", "repro"):
+        (poison / pkg).mkdir(parents=True)
+        (poison / pkg / "__init__.py").write_text(
+            f"raise ImportError('the port imported {pkg}')\n")
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from repro_torch.cluster.coordinator import ClusterConfig, "
+        "cluster_solve\n"
+        "if __name__ == '__main__':\n"
+        "    rng = np.random.default_rng(0)\n"
+        "    D = rng.standard_normal((200, 6)).astype(np.float32)\n"
+        "    a = np.sign(rng.standard_normal(200)).astype(np.float32)\n"
+        "    res = cluster_solve(D, a, {'name': 'logistic'}, tau=0.1,\n"
+        "        max_iters=5, config=ClusterConfig(n_workers=1,\n"
+        "        device='cpu', heartbeat_timeout_s=30,\n"
+        "        register_timeout_s=120))\n"
+        "    assert res.iters == 5 and res.telemetry['workers_alive'] == 1\n"
+        "    bad = [k for k in sys.modules if k.split('.')[0] in\n"
+        "           ('jax', 'jaxlib', 'repro')]\n"
+        "    print('BAD', bad)\n"
+        "    sys.exit(1 if bad else 0)\n")
+    env = _env()
+    env["PYTHONPATH"] = os.pathsep.join([str(poison), env["PYTHONPATH"]])
+    script = tmp_path / "solve.py"
+    script.write_text(code)
+    out = subprocess.run([sys.executable, str(script)], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
 

@@ -226,14 +226,16 @@ def test_unknown_problems_and_executors_raise():
     ex = tprob.make_executor("shard_map", tprob.make_problem("logistic"),
                              a.D_c, a.lab, device="cpu")
     assert ex.name == "shard_map" and ex.world == 1 and ex.pad == 0
-    assert ex.extra_record() == {"shards": 1, "backend": "none"}
+    assert ex.extra_record() == {"shards": 1, "group_backend": "none"}
     assert not torch.distributed.is_initialized()
     # the streaming executor (ROADMAP item 7) is ported
     ex = tprob.make_executor("streaming", tprob.make_problem("logistic"),
                              a.D_c.reshape(-1, 20), a.lab.reshape(-1),
                              device="cpu", block_rows=300)
     assert ex.name == "streaming" and ex.store.block_rows == 300
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    # the cluster executor (ROADMAP item 9) is ported: like every entry
+    # point it runs on the card unless asked for the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tprob.fit_on_executor(tprob.make_problem("logistic"), "cluster",
                               a.D_c, a.lab)
     with pytest.raises(ValueError, match="needs mu"):

@@ -191,8 +191,11 @@ def test_unported_paths_name_their_roadmap_item(classif):
     D, lab = classif
     Dt, lt = torch.from_numpy(D), torch.from_numpy(lab)
     s = UnwrappedADMM(tprox.make_logistic(), tau=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        s.solve(Dt, lt, obs=object())
+    # observability (the obs copy of ROADMAP item 10) is ported: a
+    # disabled bundle is the obs-off path, bit for bit
+    from repro_torch.obs import NOOP
+    assert torch.equal(s.solve(Dt, lt, max_iters=8, obs=NOOP).x,
+                       s.solve(Dt, lt, max_iters=8).x)
     # checkpoints and the out-of-core solve (ROADMAP item 7) are ported:
     # a checkpointed solve resumes to the same bits as an uninterrupted one
     import tempfile
@@ -305,9 +308,23 @@ def test_fit_cli_cpu(capsys):
     (["--executor", "cluster"], "ROADMAP item 9"),
     (["--obs-dir", "obs"], "ROADMAP item 10"),
 ])
-def test_fit_cli_names_roadmap_item_for_unported_flags(argv, item):
-    with pytest.raises(SystemExit, match=item):
-        fit_cli.main(["--device", "cpu"] + argv)
+def test_fit_cli_names_roadmap_item_for_unported_flags(argv, item,
+                                                       tmp_path, capsys):
+    """The flags of the cluster runtime (item 9) and the obs copy (item
+    10) were refused until those items were ported; now each one runs. A
+    lone ``--workers`` keeps the local executor, as in the JAX CLI."""
+    if argv[0] == "--obs-dir":
+        argv = ["--obs-dir", str(tmp_path / "obs")]
+    res = fit_cli.main(["--device", "cpu", "--nodes", "2",
+                        "--rows-per-node", "200", "--features", "8",
+                        "--iters", "20"] + argv)
+    out = capsys.readouterr().out
+    assert bool(torch.isfinite(torch.as_tensor(res.x)).all())
+    assert ("cluster: 2/2 workers alive" in out) == \
+        (argv == ["--executor", "cluster"])
+    if argv[0] == "--obs-dir":
+        assert "obs: wrote" in out
+        assert (tmp_path / "obs" / "trace.json").exists()
 
 
 @pytest.mark.parametrize("argv,ranks", [
