@@ -58,6 +58,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               and every executor problem at N 4 x m_i 250 x n 20 on the
               card against the same call on the CPU, and K2b timed at the
               lasso's shape against its plain version and D.T @ [D | b].
+              Then phase 14 (the fit service) on the same data.
    The lasso data are freed.
 7. sparse   — the sparse data path (DESIGN.md section 10) at n = 512
               features, density 1 %, m = 2^22 rows, f32 values (~0.9 GB
@@ -95,7 +96,7 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               in-memory sparse solve, K6 timed at the store-block shape,
               ``SufficientStats.from_store`` on the lasso at 4,194,304 x
               200 (one K2b launch per block) with FASTA on it and the
-              Cholesky update / downdate of a 1,000-row block, and
+              Cholesky update / downdate of a 256-row block, and
               ``launch.fit.main --executor streaming`` with checkpoints,
               then ``--resume``, at 2^20 rows.
 9. shard_map — runs right after phase 5, while phase 4's star catalog is
@@ -159,6 +160,24 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               (B 8, H 32, T 4096, hd 64, chunk 16, bf16 r/k/v) against its
               plain version and the model's torch chunked form (K5 must
               beat it).
+14. service — the fit service (DESIGN.md section 15), run inside phase 6
+              on its lasso before the data are freed: ``FitServer``
+              registers D (one K2b launch, counted; the seconds split into
+              K2b and the sha256 fingerprint), 64 ridge probes with fresh
+              labels in windows of 16 (4 rhs passes, 1 factorization, no
+              Gram pass; x against the float64 closed form; one window's
+              H2D, rhs pass and triangular solve timed apart), a lasso path
+              of 64 mus in one lane-batched FASTA (each lane against its
+              single solve; KKT in float64), a logistic full solve (K3
+              counted: 50 launches on the ring, K2a 1; x against
+              ``UnwrappedADMM.solve``; K3 timed at the lasso's shape),
+              ``FitFrontend`` on loopback with two
+              tenants (48 requests, all ok, none lost; then 24 with seeded
+              slow-backend chaos: degraded answers, none lost), a 64-row
+              block ingested and retired (one K2b launch each, the rank-64
+              factor update against a fresh factor, the fingerprint back
+              to the original) and ``launch.serve_fit.main`` at 2^20 x 200
+              in process (probes, ``--mu-path``) and with ``--port 0``.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. The script imports no JAX and nothing of
@@ -242,6 +261,9 @@ SOURCES = {
         "src/repro/kernels/spgram/spgram.py:96"),
     # K3 on the shard_map path, at the world-4 shard (m / 4 rows)
     "K3_admm_iter_shard": ("src/repro_torch/kernels/csrc/admm_iter.cu",
+                           "src/repro/kernels/admm_iter/admm_iter.py:82"),
+    # K3 on the fit service's logistic full solve, at the lasso's shape
+    "K3_admm_iter_lasso": ("src/repro_torch/kernels/csrc/admm_iter.cu",
                            "src/repro/kernels/admm_iter/admm_iter.py:82"),
 }
 
@@ -1338,11 +1360,13 @@ def phase_problems(torch, rt, reps: int):
           f"{cons_s:.3f} s; consensus / transpose "
           f"{cons_stop_s / warm_s:.1f}x", flush=True)
     rt["lasso"] = (D2, b2)
+    rt["lasso64"] = (G64, c64)
     del fits, rc, rc2, ref, ref_e, G64, c64
 
     phase_registry_small(torch)
     phase_lasso_timing(torch, rt, reps)
-    del rt["lasso"], D, b, D2, b2, prob
+    phase_service(torch, rt, D, b, mu)
+    del rt["lasso"], rt["lasso64"], D, b, D2, b2, prob
     print(f"lasso: freed, {free_device_memory(torch):.2f} GB still "
           "allocated", flush=True)
 
@@ -1479,6 +1503,409 @@ def phase_lasso_timing(torch, rt, reps: int):
     print(f"K2b at the lasso shape: {k_ms:.3f} ms, "
           f"{m * n * n / k_ms / 1e9:.1f} TFLOP/s of m n^2; "
           f"D.T @ [D | b] {lib_ms:.3f} ms", flush=True)
+
+
+# Phase 14, the fit service on phase 6's lasso: 64 ridge probes with fresh
+# labels in windows of 16, a lasso path of 64 mus from mu_max down to the
+# 10 % rule's mu, one logistic full solve of 50 iterations, 48 requests
+# over TCP from two tenants (then 24 with seeded slow-backend chaos), a
+# 64-row block ingested and retired, and the CLI at 2^20 x 200
+SERVICE = dict(probes=64, window=16, ridge_mu=1.0, path=64, full_iters=50,
+               tcp=48, chaos=24, chaos_slow_ms=3000.0, cold_budget_s=1.5,
+               block=64, cli_rows=1 << 20, cli_requests=24, cli_iters=200)
+
+
+def phase_service(torch, rt, D, b, mu):
+    """Phase 14: ``FitServer`` over phase 6's lasso (registration through
+    K2b, warm ridge probes and a lasso path with no Gram pass, a logistic
+    full solve through K3, ingest / retire through K2b and the rank-k
+    factor update), ``FitFrontend`` on loopback with and without chaos,
+    and ``launch.serve_fit``."""
+    import hashlib
+    import threading
+
+    import numpy as np
+
+    from repro_torch.cluster.chaos import FaultEvent, FaultInjector
+    from repro_torch.core.fasta import transpose_reduction_lasso
+    from repro_torch.core.oracles import default_tau
+    from repro_torch.core.prox import make_logistic
+    from repro_torch.core.unwrapped import UnwrappedADMM
+    from repro_torch.kernels.admm_iter import ops as iter_ops
+    from repro_torch.kernels.gram import ops as gram_ops
+    from repro_torch.launch import serve_fit
+    from repro_torch.service import FitRequest, FitServer, batching
+    from repro_torch.service import stats as stats_mod
+    from repro_torch.service.frontend import (SERVICE_DATA_PLANE,
+                                              FitFrontend, FitServiceClient)
+
+    sv = SERVICE
+    t_phase = time.perf_counter()
+    D2, b2 = rt["lasso"]
+    G64, c64 = rt["lasso64"]
+    m, n = D2.shape
+    dev = D2.device
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    k2b, k3 = gram_ops.gram_and_rhs, iter_ops.admm_iter_full
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # 1. register: K2b timed by CUDA events, the fingerprint by the clock
+    real_stats, real_fp = stats_mod.gram_stats, stats_mod._content_fingerprint
+    split = {}
+
+    def timed_stats(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real_stats(*a, **k)
+        e1.record()
+        e1.synchronize()
+        split["k2b_ms"] = e0.elapsed_time(e1)
+        return out
+
+    def timed_fp(*a):
+        t0 = time.perf_counter()
+        out = real_fp(*a)
+        split["fp_s"] = time.perf_counter() - t0
+        return out
+
+    srv = FitServer(window=sv["window"], device=dev)
+    stats_mod.gram_stats, stats_mod._content_fingerprint = timed_stats, \
+        timed_fp
+    zero_counts(k2b)
+    t0 = time.perf_counter()
+    fp = srv.register_dataset(D, b)
+    reg_s = sync_s(t0)
+    stats_mod.gram_stats, stats_mod._content_fingerprint = real_stats, \
+        real_fp
+    st = srv.stats_for(fp)
+    e_g = gram_err(torch, st.G, G64)
+    dg = torch.sqrt(torch.diagonal(G64))
+    bb = float(torch.sum(b2.double() ** 2))
+    e_c = float(((st.c.double() - c64).abs() / (dg * math.sqrt(bb))).max())
+    check(k2b.launches == 1 and srv.counters.gram_passes == 1
+          and e_g <= 1e-5 and e_c <= 1e-5,
+          f"service register {m}x{n}: K2b {k2b.launches} launch, "
+          f"gram_passes {srv.counters.gram_passes}; (G, c) vs f64 "
+          f"{e_g:.2e} / {e_c:.2e} <= 1e-5")
+    print(f"service register: {reg_s:.3f} s = K2b {split['k2b_ms']:.2f} ms "
+          f"+ fingerprint (D2H + sha256 of {D2.numel() * 4 / 1e9:.1f} GB) "
+          f"{split['fp_s']:.3f} s + rest", flush=True)
+    # the fingerprint's parts at 1 GiB: the pageable D2H, the host copy of
+    # tobytes() and sha256 on one host thread
+    probe = D2.reshape(-1)[:1 << 28]
+    t0 = time.perf_counter()
+    host = probe.cpu().numpy()
+    d2h = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = host.tobytes()
+    cp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hashlib.sha256(raw).hexdigest()
+    sha = time.perf_counter() - t0
+    gb = probe.numel() * 4 / 1e9
+    print(f"service fingerprint parts, GB/s: D2H {gb / d2h:.2f}, "
+          f"tobytes {gb / cp:.2f}, sha256 {gb / sha:.2f}", flush=True)
+    del probe, host, raw
+
+    # 2. ridge probes with fresh labels: one rhs pass a window, one factor
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    Bp = torch.randn((m, sv["probes"]), generator=g, device=dev)
+    probes = Bp.T.contiguous().cpu().numpy()
+    reqs = [FitRequest(problem="ridge", fingerprint=fp, b=probes[j],
+                       mu=sv["ridge_mu"]) for j in range(sv["probes"])]
+    zero_counts(k2b)
+    t0 = time.perf_counter()
+    resp = srv.serve(reqs)
+    probe_s = sync_s(t0)
+    c = srv.counters
+    windows = sv["probes"] // sv["window"]
+    check(len(resp) == sv["probes"] and all(r.status == "ok" for r in resp)
+          and c.rhs_passes == windows and c.factorizations == 1
+          and c.gram_passes == 1 and k2b.launches == 0,
+          f"service probes: {len(resp)} ok, rhs_passes {c.rhs_passes} = "
+          f"{windows}, factorizations {c.factorizations}, gram_passes "
+          f"{c.gram_passes}, K2b {k2b.launches}")
+    C64 = torch.zeros((n, sv["probes"]), dtype=torch.float64, device=dev)
+    for s0 in range(0, m, 1 << 20):
+        C64 += D2[s0:s0 + (1 << 20)].double().T @ \
+            Bp[s0:s0 + (1 << 20)].double()
+    X64 = torch.linalg.solve(G64 + sv["ridge_mu"] * eye, C64).T
+    X = torch.from_numpy(np.stack([r.x for r in resp])).to(dev).double()
+    e = float((torch.linalg.norm(X - X64, dim=1)
+               / torch.linalg.norm(X64, dim=1)).max())
+    check(e <= 1e-4, f"service probes vs f64 closed form: rel {e:.2e} "
+          "<= 1e-4")
+    warm = c.snapshot()["fit_latency_ms"]["warm"]
+    print(f"service probes: {sv['probes']} in {probe_s:.3f} s = "
+          f"{probe_s / sv['probes'] * 1e3:.2f} ms/request (numpy b, H2D "
+          f"included); warm p50 {warm['p50']:.1f} ms", flush=True)
+    # one window's parts, each as the server runs it: the label vectors'
+    # H2D (pageable numpy, stacked on the card; host clock, median of 3),
+    # the rhs pass (one GEMM on the card), beside a sum of 4 row-block
+    # GEMMs, and the triangular solve pair on the cached factor (CUDA
+    # events)
+    win = list(probes[:sv["window"]])
+    h2d = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        Bw = torch.stack([srv._tensor(v) for v in win], 1)
+        h2d.append(sync_s(t0))
+    q = -(-m // 4)
+    timer = Timer(torch, REPS)
+    rhs_ms = timer(lambda: batching.rhs_chunked(D2, Bw))
+    four = lambda: sum(D2[s0:s0 + q].T @ Bw[s0:s0 + q]
+                       for s0 in range(0, m, q))
+    four_ms = timer(four)
+    Cw = batching.rhs_chunked(D2, Bw)
+    Cw64 = C64[:, :sv["window"]]
+    rhs_err = lambda C: float((C.double() - Cw64).abs().max()
+                              / Cw64.abs().max())
+    e_four = rhs_err(four())
+    e = rhs_err(Cw)
+    check(e <= 1e-4, f"service rhs pass at {m}x{n}x{sv['window']} vs f64: "
+          f"{e:.2e} <= 1e-4 (4 blocks {e_four:.2e})")
+    L = srv._factors[(fp, float(sv["ridge_mu"]))]
+    tri_ms = timer(lambda: batching.batched_gram_solve(L, Cw.T))
+    rb = bound(rt, (m * n + m * sv["window"] + n * sv["window"]) * 4,
+               2 * m * n * sv["window"])
+    win_ms = probe_s / windows * 1e3
+    h2d_ms = statistics.median(h2d) * 1e3
+    print(f"service probe window of {sv['window']}: {win_ms:.1f} ms on "
+          f"average in the serve; apart: H2D {h2d_ms:.1f} ms "
+          f"({len(win) * m * 4 / h2d_ms / 1e6:.2f} GB/s), rhs_chunked "
+          f"{rhs_ms:.3f} ms (4 blocks {four_ms:.3f}; bound {rb[0]:.3f} ms, "
+          f"{rb[1]}), triangular solve {tri_ms:.3f} ms", flush=True)
+    del Bp, probes, reqs, resp, C64, X64, X, win, Bw, Cw, Cw64
+
+    # 3. the lasso path: one lane-batched FASTA, each lane against its own
+    # single solve and the KKT conditions in float64
+    mus = mu * torch.logspace(1.0, 0.0, sv["path"], dtype=torch.float64)
+    t0 = time.perf_counter()
+    Xp, its = batching.batched_quad_prox(
+        st.G, st.c.expand(sv["path"], n), mus, kind="lasso",
+        iters=LASSO_ITERS)
+    path_s = sync_s(t0)
+    t0 = time.perf_counter()
+    singles = [transpose_reduction_lasso(st.G, st.c, float(u),
+                                         iters=LASSO_ITERS)
+               for u in mus.tolist()]
+    single_s = sync_s(t0)
+    e_x = max(float(((Xp[j] - r.x).abs() - 1e-3 * r.x.abs()).max())
+              for j, r in enumerate(singles))
+    corr = G64 @ Xp.double().T - c64[:, None]
+    viol = float((corr.abs().max(0).values - mus.to(dev)).max() / mu)
+    its = its.tolist()
+    check(e_x <= 1e-4 and viol <= 1e-3 and bool(torch.isfinite(Xp).all()),
+          f"service mu path: {sv['path']} lanes, max(|dx| - 1e-3 |x|) "
+          f"{e_x:.2e} <= 1e-4 vs single solves; KKT {viol:.2e} mu <= "
+          f"1e-3 mu")
+    print(f"service mu path: {path_s * 1e3 / sv['path']:.2f} ms/solve "
+          f"batched ({path_s:.3f} s, iters {min(its)}-{max(its)}), "
+          f"{single_s * 1e3 / sv['path']:.2f} ms/solve alone", flush=True)
+    del Xp, singles, corr
+
+    # 4. a logistic full solve through the server: K3 every iteration
+    labels = torch.sign(b2)
+    lab_np = labels.cpu().numpy()
+    k2a = gram_ops.gram
+    zero_counts(k3)
+    zero_counts(k2a)
+    t0 = time.perf_counter()
+    (rl,) = srv.serve([FitRequest(problem="logistic", fingerprint=fp,
+                                  b=lab_np, iters=sv["full_iters"])])
+    full_s = sync_s(t0)
+    launches, ring, k2a_n = k3.launches, k3.launches_ring, k2a.launches
+    rt["launches"]["K3_admm_iter_lasso"] = launches
+    ref = UnwrappedADMM(loss=make_logistic(), tau=default_tau("logistic", m),
+                        eps_rel=0.0, eps_abs=0.0, device=str(dev)).solve(
+        D, labels.reshape(D.shape[:2]), max_iters=sv["full_iters"])
+    xr = ref.x.cpu().numpy()
+    e = float(np.abs(rl.x - xr).max() / max(np.abs(xr).max(), 1e-30))
+    check(rl.status == "ok" and launches == ring == sv["full_iters"]
+          and k2a_n == 1 and e <= 1e-6 and srv.counters.full_solves == 1,
+          f"service logistic: K3 {launches} launches ({ring} ring) = "
+          f"{sv['full_iters']} iterations, K2a {k2a_n} (the Gram); x vs "
+          f"UnwrappedADMM.solve {e:.2e} <= 1e-6")
+    print(f"service logistic: {full_s:.3f} s for {sv['full_iters']} iters "
+          f"({full_s * 1e3 / sv['full_iters']:.2f} ms/iter, setup "
+          "included)", flush=True)
+    # K3 at this shape, from the solve's x (y = D x, a small lam), against
+    # its plain version
+    delta = 1.0 / default_tau("logistic", m)
+    xk = ref.x.to(dev).float()
+    yk = D2 @ xk
+    lk = 0.01 * torch.randn((m,), generator=g, device=dev)
+    k3f = lambda: k3(D2, labels, yk, lk, xk, kind="logistic", delta=delta)
+    p3f = lambda: iter_ops.admm_iter_plain(D2, labels, yk, lk, xk,
+                                           kind="logistic", delta=delta)
+    o1, o2 = k3f(), p3f()
+    e_yl = max(rel_err(torch, o1[0], o2[0]), rel_err(torch, o1[1], o2[1]))
+    e_dwv = max(float((u - v).abs().max() / v.abs().max().clamp(min=1))
+                for u, v in zip(o1[2:], o2[2:]))
+    check(iter_ops.route(m, n, D2.dtype) == "ring" and e_yl <= 4e-6
+          and e_dwv <= 1e-4,
+          f"K3 at {m}x{n} (ring): y/lam err {e_yl:.2e} <= 4e-6, d/w/v err "
+          f"{e_dwv:.2e} <= 1e-4")
+    err = max(float((u - v).abs().max()) for u, v in zip(o1, o2))
+    del o1, o2
+    k3_ms = timer(k3f)
+    record(rt, "K3_admm_iter_lasso", err, k3_ms, timer(p3f),
+           bound(rt, m * n * 4 + 5 * m * 4 + 4 * n * 4,
+                 m * (8 * n + logistic_flops(delta))), None)
+    per_it = full_s * 1e3 / sv["full_iters"]
+    print(f"service logistic: {per_it:.2f} ms/iter = K3 {k3_ms:.3f} ms + "
+          f"{per_it - k3_ms:.2f} ms (the setup's K2a and factor spread over "
+          "the iterations, the driver)", flush=True)
+    del xk, yk, lk
+
+    # 5. over TCP: two tenants, no chaos (all ok), then seeded chaos
+    def drive(fe, total, tag, tenants=("t0", "t1")):
+        lat, out, lock = [], [], threading.Lock()
+
+        def tenant(k):
+            with FitServiceClient(fe.address, tenant=tenants[k],
+                                  timeout=60.0) as cl:
+                for i in range(k, total, len(tenants)):
+                    if i % 3 == 0:
+                        kw = dict(problem="logistic", b=lab_np,
+                                  iters=sv["full_iters"])
+                    elif i % 3 == 1:
+                        kw = dict(problem="ridge", mu=sv["ridge_mu"],
+                                  b=probe_b[i % len(probe_b)])
+                    else:
+                        kw = dict(problem="lasso", mu=mu, iters=LASSO_ITERS)
+                    problem = kw.pop("problem")
+                    t0 = time.perf_counter()
+                    r = cl.fit(problem, fp, timeout=300.0, **kw)
+                    with lock:
+                        lat.append(time.perf_counter() - t0)
+                        out.append((i, problem, r))
+
+        ths = [threading.Thread(target=tenant, args=(k,))
+               for k in range(len(tenants))]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600.0)
+        check(not any(t.is_alive() for t in ths) and len(out) == total,
+              f"service {tag}: {len(out)} of {total} answered")
+        statuses = {}
+        for _, _, r in out:
+            statuses[r["status"]] = statuses.get(r["status"], 0) + 1
+        return out, np.asarray(lat) * 1e3, statuses
+
+    rng = np.random.default_rng(SEED + 14)
+    probe_b = [rng.standard_normal(m).astype(np.float32) for _ in range(4)]
+    zero_counts(k3)
+    zero_counts(k2a)
+    errors0 = srv.counters.errors
+    t0 = time.perf_counter()
+    with FitFrontend(server=srv, max_frame_bytes=256 << 20,
+                     cold_budget_s=120.0) as fe:
+        out, lat, statuses = drive(fe, sv["tcp"], "tcp")
+        zero_lost = fe.zero_lost_requests()
+    tcp_s = time.perf_counter() - t0
+    x_log = [r["x"] for _, p, r in out if p == "logistic"]
+    e = max(float(np.abs(x - rl.x).max()) for x in x_log) / max(
+        float(np.abs(rl.x).max()), 1e-30)
+    same = all(np.array_equal(x, rl.x) for x in x_log)
+    check(statuses == {"ok": sv["tcp"]} and zero_lost
+          and srv.counters.errors == errors0 and k3.launches > 0
+          and e <= 1e-5,
+          f"service tcp: statuses {statuses}, zero lost {zero_lost}, "
+          f"errors {srv.counters.errors - errors0}, K3 {k3.launches} "
+          f"launches; logistic x vs step 4's {e:.1e} <= 1e-5 (bitwise "
+          f"{same})")
+    print(f"service tcp: {sv['tcp']} requests from 2 tenants in "
+          f"{tcp_s:.2f} s; latency p50 {np.percentile(lat, 50):.1f} ms, "
+          f"p99 {np.percentile(lat, 99):.1f} ms; K3 {k3.launches}, K2a "
+          f"{k2a.launches} launches", flush=True)
+
+    crng = np.random.default_rng(SEED + 14)
+    points = sorted(int(p) for p in crng.choice(
+        np.arange(1, sv["chaos"] + 1, 3), 3, replace=False))
+    chaos = FaultInjector([FaultEvent(p, "svc", "slow", sv["chaos_slow_ms"])
+                           for p in points], data_plane=SERVICE_DATA_PLANE)
+    t0 = time.perf_counter()
+    fe = FitFrontend(server=srv, max_frame_bytes=256 << 20, chaos=chaos,
+                     cold_budget_s=sv["cold_budget_s"])
+    out, lat, statuses = drive(fe, sv["chaos"], "chaos", tenants=("t0",))
+    zero_lost = fe.zero_lost_requests()
+    fe.close()
+    fe._cold_pool.shutdown(wait=True)     # the slowed solves run to the end
+    chaos_s = time.perf_counter() - t0
+    check(statuses.get("degraded", 0) >= 1 and zero_lost
+          and set(statuses) <= {"ok", "degraded"},
+          f"service chaos (slow cold backend at fits {points}): statuses "
+          f"{statuses}, zero lost {zero_lost}")
+    print(f"service chaos: {sv['chaos']} requests in {chaos_s:.2f} s; "
+          f"latency p50 {np.percentile(lat, 50):.1f} ms, p99 "
+          f"{np.percentile(lat, 99):.1f} ms", flush=True)
+    del labels, lab_np, probe_b, out, x_log
+
+    # 6. ingest and retire a labeled block with one live factor (K2b a
+    # block; the rank-64 Cholesky update is a host loop of small launches)
+    key = (fp, float(sv["ridge_mu"]))
+    check(list(srv._factors) == [key], f"service: one live factor "
+          f"({len(srv._factors)})")
+    blk = torch.randn((sv["block"], n), generator=g, device=dev)
+    blk_b = torch.randn((sv["block"],), generator=g, device=dev)
+    updates0 = srv.counters.factor_updates
+
+    def factor_err(fpk):
+        L = srv._factors[(fpk, key[1])].double()
+        Lf = torch.linalg.cholesky(srv.stats_for(fpk).G.double()
+                                   + key[1] * eye)
+        return float(torch.linalg.norm(L - Lf) / torch.linalg.norm(Lf))
+
+    zero_counts(k2b)
+    t0 = time.perf_counter()
+    fp2 = srv.ingest_block(fp, blk, blk_b)
+    ing_s, ing_k2b = sync_s(t0), k2b.launches
+    e_in = factor_err(fp2)
+    zero_counts(k2b)
+    t0 = time.perf_counter()
+    fp3 = srv.retire_block(fp2, blk, blk_b)
+    ret_s, ret_k2b = sync_s(t0), k2b.launches
+    e_out = factor_err(fp3)
+    check(ing_k2b == ret_k2b == 1 and fp2 != fp and fp3 == fp
+          and srv.counters.factor_updates - updates0 == 2
+          and e_in <= 1e-4 and e_out <= 1e-4
+          and srv.stats_for(fp3).rows == m,
+          f"service ingest / retire {sv['block']} rows: K2b {ing_k2b} + "
+          f"{ret_k2b}, factor_updates 2, fingerprint back to the "
+          f"original; L vs a fresh factor {e_in:.2e} / {e_out:.2e} <= 1e-4")
+    print(f"service ingest {ing_s:.2f} s, retire {ret_s:.2f} s (rank-"
+          f"{sv['block']} Cholesky up/downdate at n = {n})", flush=True)
+    check(srv.counters.errors == 0, "service: errors 0")
+    del srv, st, blk, blk_b
+    free_device_memory(torch)
+
+    # 7. the CLI at 2^20 x 200: in process (probes, then the mu path), then
+    # networked
+    base = ["--rows", str(sv["cli_rows"]), "--features", str(n),
+            "--iters", str(sv["cli_iters"]), "--device", str(dev)]
+    t0 = time.perf_counter()
+    r1 = serve_fit.main(base + ["--requests", "64"])
+    r2 = serve_fit.main(base + ["--requests", "64", "--mu-path"])
+    r3 = serve_fit.main(base + ["--port", "0", "--requests",
+                                str(sv["cli_requests"])])
+    cli_s = time.perf_counter() - t0
+    c1 = r1["counters"]
+    check(c1["gram_passes"] == 1 and c1["errors"] == 0
+          and c1["responses"] == 64 and r2["counters"]["gram_passes"] == 1
+          and bool(torch.isfinite(r2["X"]).all())
+          and r3["statuses"] == {"ok": sv["cli_requests"]}
+          and r3["zero_lost"],
+          f"service CLI at {sv['cli_rows']}x{n}: probes, mu path, "
+          f"networked {r3['statuses']} (zero lost {r3['zero_lost']}) in "
+          f"{cli_s:.1f} s")
+    print(f"service phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 # The sparse data path (DESIGN.md section 10) at benchmarks/sparse_bench.py's
@@ -1883,7 +2310,9 @@ def phase_column_split(torch, rt, reps: int, cs):
 OOC = dict(rows=M_MAIN, n=307, budget_mb=4096, iters=20, min_host_gb=64)
 OOC_RESUME = dict(rows=1 << 20, iters=30, every=10)
 OOC_SPARSE = dict(m=1 << 20, n=512, density=0.01)
-OOC_STATS = dict(nodes=64, rows_per_node=65536, n=200, chol_rows=1000)
+# (the rank-k Cholesky update is a host loop of ~13 small launches a
+# column: 256 rows, cut from 1,000, keep it to ~10-30 s each way)
+OOC_STATS = dict(nodes=64, rows_per_node=65536, n=200, chol_rows=256)
 OOC_CLI = dict(nodes=16, rows_per_node=65536, n=200, budget_mb=512,
                every=10, iters=25)
 # peak device memory of a streamed solve above its baseline: the budget's
@@ -2259,7 +2688,7 @@ def phase_ooc_sparse(torch, rt, reps: int):
 def phase_ooc_stats(torch, save_dir):
     """SufficientStats.from_store on the lasso at 4,194,304 x 200 (one K2b
     launch per block), FASTA on it, and the Cholesky rank-k update and
-    downdate of a 1,000-row block against a fresh factor. The store is
+    downdate of a 256-row block against a fresh factor. The store is
     saved under ``save_dir`` for phase 10; returns its path, fingerprint
     and the float64 (G, c)."""
     from repro_torch.core.fasta import transpose_reduction_lasso

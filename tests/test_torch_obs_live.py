@@ -1,30 +1,30 @@
 """Port parity for the live observability plane (DESIGN.md section 16):
-the mirror of the service-free tests of ``tests/test_obs_live.py``, on
-``repro_torch.obs`` and ``repro_torch.launch.obs_report`` (copies of the
-JAX package's modules).
+the mirror of ``tests/test_obs_live.py`` on ``repro_torch.obs``,
+``repro_torch.launch.obs_report`` and the fit service
+(``repro_torch.service.frontend`` / ``admission``), copies of the JAX
+package's modules.
 
-Covered: the request-scoped trace context (in process and across the TCP
-wire of ``repro_torch.cluster.transport``), the scrape endpoint, the SLOs
-with burn rates, the flight recorder, crash-safe artifacts (atexit,
-SIGTERM and SIGKILL flushes, truncated salvage) and obs_report's service
-view; and one registry rendered through both packages'
-``render_prometheus`` and ``build_report``, which must agree.
+Covered: the request-scoped trace context (in process, across the TCP
+wire of ``repro_torch.cluster.transport`` and through a chaos-slowed cold
+solve of the front end, old-format frames included), the queue-wait spans
+against the dispatch histogram, the scrape endpoint (also the front end's,
+against its status counts), the SLOs with burn rates, the flight recorder
+and its breaker-trip incident, crash-safe artifacts (atexit, SIGTERM and
+SIGKILL flushes, truncated salvage), bounded per-tenant admission labels
+and obs_report's service view; and one registry rendered through both
+packages' ``render_prometheus`` and ``build_report``, which must agree.
+The front end's FitServer runs on the CPU (``device="cpu"``).
 
-Waiting, with the modules they test:
-  * the fit service (ROADMAP item 10, not ported yet):
-    ``test_trace_propagates_through_chaos_slowed_cold_solve``,
-    ``test_queue_wait_span_reconciles_with_dispatch_histogram``,
-    ``test_old_format_frames_still_decode``,
-    ``test_breaker_trip_dumps_incident`` (all drive ``FitFrontend``),
-    ``test_admission_emits_bounded_tenant_labels``,
-    ``test_admission_reject_reason_labeled`` (``AdmissionController``) and
-    ``test_frontend_scrape_reconciles_with_status_counts``;
-  * the benchmark scripts (ROADMAP item 5): the three ``bench_compare``
-    tests.
+Waiting, with the modules they test: the benchmark scripts (ROADMAP item
+5): the three ``bench_compare`` tests.
 """
+import functools
 import json
 import os
+import pickle
 import signal
+import socket
+import struct
 import subprocess
 import sys
 import time
@@ -33,7 +33,10 @@ import urllib.request
 
 import pytest
 
-from repro_torch.launch.obs_report import build_report
+import numpy as np
+
+from repro_torch.cluster.chaos import FaultEvent, FaultInjector
+from repro_torch.launch.obs_report import build_report, summarize_incident
 from repro_torch.obs import Observability, load_incident, read_jsonl
 from repro_torch.obs.context import (
     TraceContext,
@@ -46,9 +49,25 @@ from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.scrape import ScrapeServer, render_prometheus
 from repro_torch.obs.slo import BURN_CAP, Objective, SLOTracker
 from repro_torch.obs.telemetry import jsonable
-from repro_torch.obs.trace import Tracer, is_ancestor, load_trace
+from repro_torch.obs.trace import Tracer, is_ancestor, load_trace, span_tree
+from repro_torch.service.admission import AdmissionController
+from repro_torch.service.frontend import (
+    SERVICE_DATA_PLANE,
+    FitServiceClient,
+)
+from repro_torch.service.frontend import FitFrontend as _FitFrontend
+
+# the front end's own FitServer on the CPU (its default is the card)
+FitFrontend = functools.partial(_FitFrontend, device="cpu")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _data(m=300, n=16, seed=0):
+    rng = np.random.default_rng(seed)
+    D = rng.standard_normal((m, n)).astype(np.float32)
+    b = np.sign(D @ np.ones(n, np.float32) + 0.1).astype(np.float32)
+    return D, b
 
 
 def _get(url, timeout=5.0):
@@ -117,6 +136,124 @@ def test_complete_at_records_retroactive_child_span():
     assert ev["ts"] == t0_us and ev["dur"] == pytest.approx(50_000)
     assert ev["args"]["parent_id"] == ctx.span_id
     assert ev["args"]["tenant"] == "t"
+
+
+# ---------------------------------------------------------------------------
+# cross-process propagation through the fit service
+# ---------------------------------------------------------------------------
+
+def test_trace_propagates_through_chaos_slowed_cold_solve(tmp_path):
+    """One traced fit against a frontend whose cold backend is slowed by
+    seeded chaos: every span lands in ONE trace, the client span is the
+    ancestor of the cold-executor span, and the cold span's duration
+    SHOWS the injected stall."""
+    D, b = _data()
+    obs = Observability(dir=str(tmp_path / "run"), process_name="frontend",
+                        crash_flush=False)
+    # the traced logistic fit is fit_seq 2 (register is not a fit;
+    # the warm ridge below is 1) — stall exactly that cold solve
+    chaos = FaultInjector([FaultEvent(2, "svc", "slow", 300.0)],
+                          data_plane=SERVICE_DATA_PLANE)
+    client_tr = Tracer(enabled=True, process_name="client")
+    fe = FitFrontend(window=2, flush_interval_s=0.005, chaos=chaos,
+                     obs=obs, cold_budget_s=30.0)
+    try:
+        with FitServiceClient(fe.address, tenant="traced",
+                              tracer=client_tr) as c:
+            fp = c.register(D, b)
+            assert c.fit("ridge", fp, mu=1.0, timeout=60.0)["status"] == "ok"
+            r = c.fit("logistic", fp, iters=50, timeout=60.0)
+            assert r["status"] == "ok"
+    finally:
+        fe.close()
+        obs.finish()
+    fe.tracer.add_events(client_tr.events())
+    evs = [e for e in fe.tracer.events() if e.get("ph") == "X"]
+    fits = [e for e in evs if e["name"] == "client.fit"
+            and e["args"].get("problem") == "logistic"]
+    assert len(fits) == 1
+    tid = fits[0]["args"]["trace_id"]
+    in_trace = [e for e in evs if (e.get("args") or {}).get("trace_id") == tid]
+    names = {e["name"] for e in in_trace}
+    assert {"client.fit", "client.submit", "frontend.admit",
+            "frontend.queue_wait", "frontend.cold_solve"} <= names
+    (cold,) = [e for e in in_trace if e["name"] == "frontend.cold_solve"]
+    assert is_ancestor(evs, fits[0]["args"]["span_id"],
+                       cold["args"]["span_id"])
+    assert cold["dur"] >= 300e3          # µs: the chaos stall is visible
+    # every span of the request resolves to a single tree (no orphans
+    # besides the root client span)
+    tree = span_tree(in_trace)
+    for e in in_trace:
+        pid = e["args"].get("parent_id")
+        if e["name"] != "client.fit":
+            assert pid is not None
+    assert fits[0]["args"]["span_id"] in tree
+
+
+def test_queue_wait_span_reconciles_with_dispatch_histogram():
+    D, b = _data()
+    obs = Observability(dir=None, enabled=True, crash_flush=False)
+    fe = FitFrontend(window=4, flush_interval_s=0.005, obs=obs)
+    tr = Tracer(enabled=True)
+    try:
+        with FitServiceClient(fe.address, tenant="t", tracer=tr) as c:
+            fp = c.register(D, b)
+            for _ in range(5):
+                assert c.fit("ridge", fp, mu=1.0,
+                             timeout=60.0)["status"] == "ok"
+    finally:
+        fe.close()
+    waits = [e for e in fe.tracer.events()
+             if e.get("ph") == "X" and e["name"] == "frontend.queue_wait"]
+    (hist,) = [h for h in fe.metrics.snapshot()["histograms"]
+               if h["name"] == "service.dispatch_wait_s"]
+    assert hist["count"] == len(waits) == 5
+    span_sum_s = sum(e["dur"] for e in waits) / 1e6
+    assert span_sum_s == pytest.approx(hist["sum"], rel=0.05, abs=0.05)
+    # each queue-wait span is parented under its request's context
+    for e in waits:
+        assert e["args"].get("parent_id") is not None
+
+
+def test_old_format_frames_still_decode(tmp_path):
+    """Peers that predate the _ctx field must interoperate both ways:
+    an untraced client sends no _ctx, and a hand-built frame of the older
+    format (raw length-prefixed pickle, no _ctx key) gets served."""
+    D, b = _data()
+    obs = Observability(dir=str(tmp_path / "run"), process_name="frontend",
+                        crash_flush=False)
+    fe = FitFrontend(window=2, flush_interval_s=0.005, obs=obs)
+    try:
+        with FitServiceClient(fe.address, tenant="legacy") as c:
+            fp = c.register(D, b)
+            r = c.fit("ridge", fp, mu=1.0, timeout=60.0)
+            assert r["status"] == "ok" and "_ctx" not in r
+        # admit span exists but starts its own (context-less) lineage
+        admits = [e for e in fe.tracer.events()
+                  if e.get("ph") == "X" and e["name"] == "frontend.admit"]
+        assert admits and all("trace_id" not in (e.get("args") or {})
+                              for e in admits)
+        # raw old-format frame bytes, no transport helper involved
+        raw = pickle.dumps({"type": "ping", "rid": 7, "tenant": "old"},
+                           protocol=pickle.HIGHEST_PROTOCOL)
+        s = socket.create_connection(fe.address, timeout=5.0)
+        try:
+            s.sendall(struct.pack(">Q", len(raw)) + raw)
+            hdr = b""
+            while len(hdr) < 8:
+                hdr += s.recv(8 - len(hdr))
+            (ln,) = struct.unpack(">Q", hdr)
+            body = b""
+            while len(body) < ln:
+                body += s.recv(ln - len(body))
+            reply = pickle.loads(body)
+            assert reply["type"] == "pong" and reply["rid"] == 7
+        finally:
+            s.close()
+    finally:
+        fe.close()
+        obs.finish()
 
 
 def test_traced_frames_are_ignored_gracefully_by_raw_reader():
@@ -347,6 +484,45 @@ def test_disabled_flight_recorder_is_noop():
     assert fr.snapshot()["events_recorded"] == 0
 
 
+def test_breaker_trip_dumps_incident(tmp_path, monkeypatch):
+    """The designed cascade: cold-backend exceptions trip the breaker,
+    and the closed→open transition dumps a flight incident that
+    obs_report can read back."""
+    D, b = _data()
+    obs = Observability(dir=str(tmp_path / "run"), process_name="frontend",
+                        crash_flush=False)
+    fe = FitFrontend(window=2, flush_interval_s=0.005, obs=obs,
+                     breaker_threshold=2, breaker_reset_s=30.0)
+    monkeypatch.setattr(
+        fe.server, "solve_one",
+        lambda req: (_ for _ in ()).throw(RuntimeError("backend down")))
+    try:
+        with FitServiceClient(fe.address, tenant="t") as c:
+            fp = c.register(D, b)
+            for _ in range(2):
+                r = c.fit("logistic", fp, iters=10, timeout=60.0)
+                assert r["status"] in ("error", "degraded")
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline and not fe.flight.incidents():
+            time.sleep(0.02)
+        summaries = [summarize_incident(p)
+                     for p in fe.flight.incidents()]
+        trips = [s for s in summaries if s["reason"] == "breaker_trip"]
+        assert trips
+        summary = trips[0]
+        assert summary["events_by_kind"].get("admit", 0) >= 1
+        assert fe.metrics.counter_value("service.breaker_trips") >= 1
+    finally:
+        fe.close()
+        obs.finish()
+    # the incident file lives under RUNDIR/incidents/ where the report
+    # generator scans for it
+    rd = str(tmp_path / "run")
+    report = build_report(rd)
+    assert any(i.get("reason") == "breaker_trip"
+               for i in report.get("incidents", []))
+
+
 # ---------------------------------------------------------------------------
 # crash-safe artifacts
 # ---------------------------------------------------------------------------
@@ -442,6 +618,66 @@ def test_truncated_artifacts_salvage(tmp_path):
     assert [r["iter"] for r in recs] == list(range(5))
     evs = load_trace(str(trpath))      # salvages complete event objects
     assert isinstance(evs, list)
+
+
+# ---------------------------------------------------------------------------
+# per-tenant admission metrics (bounded cardinality)
+# ---------------------------------------------------------------------------
+
+def test_admission_emits_bounded_tenant_labels():
+    reg = MetricsRegistry()
+    ac = AdmissionController(max_queue=100, tenant_rate=1000.0,
+                             registry=reg, max_labeled_tenants=4)
+    for i in range(10):
+        assert ac.admit(f"tenant-{i}", in_flight=0).ok
+    admitted = reg.labeled("admission.admitted", "tenant")
+    assert sum(admitted.values()) == 10
+    assert len(admitted) == 5          # 4 real labels + _other
+    assert admitted["_other"] == 6
+    # token gauges use the same capped names
+    assert set(ac.bucket_levels()) <= set(admitted)
+
+
+def test_admission_reject_reason_labeled():
+    reg = MetricsRegistry()
+    ac = AdmissionController(max_queue=2, tenant_rate=1.0, tenant_burst=1.0,
+                             registry=reg)
+    assert ac.admit("t", in_flight=0).ok
+    assert not ac.admit("t", in_flight=0).ok       # quota
+    assert not ac.admit("t", in_flight=2).ok       # queue_full
+    rej = reg.labeled("admission.rejected", "reason")
+    assert rej == {"quota": 1, "queue_full": 1}
+
+
+def test_frontend_scrape_reconciles_with_status_counts(tmp_path):
+    D, b = _data()
+    obs = Observability(dir=str(tmp_path / "run"), process_name="frontend",
+                        crash_flush=False)
+    fe = FitFrontend(window=2, flush_interval_s=0.005, obs=obs,
+                     scrape_port=0)
+    try:
+        with FitServiceClient(fe.address, tenant="t") as c:
+            fp = c.register(D, b)
+            for _ in range(3):
+                assert c.fit("ridge", fp, mu=1.0,
+                             timeout=60.0)["status"] == "ok"
+        _, js = _get(fe.scrape.url("/metrics.json"))
+        snap = json.loads(js)
+        responded = sum(c0["value"] for c0 in snap["counters"]
+                        if c0["name"] == "service.responses")
+        assert responded == fe.status_counts()["ok"] == 3
+        # live gauges and SLO gauges ride the same scrape
+        names = {g["name"] for g in snap["gauges"]}
+        assert {"service.queue_depth", "service.uptime_s",
+                "breaker.open", "slo.sli"} <= names
+        _, slo = _get(fe.scrape.url("/slo"))
+        doc = json.loads(slo)
+        by = {o["name"]: o for o in doc["objectives"]}
+        assert by["zero_lost"]["ok"] is True
+        assert by["availability"]["sli"] == 1.0
+    finally:
+        fe.close()
+        obs.finish()
 
 
 # ---------------------------------------------------------------------------
