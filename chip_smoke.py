@@ -18,7 +18,8 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               aligned copy), K3's two routes (the
               ring for n <= 512; the wide kernel past it and pinned at
               n = 307), K4's GQA groups, head dims and masks on both routes
-              (bf16 tensor cores; FMA), each K3 and K4 call's route read
+              (bf16 tensor cores; FMA, head dims 8-128), each K3 and K4
+              call's route read
               from the counters, the tensor-core cases also against the plain
               version with P rounded to bf16, K5's head dims,
               chunks, layouts, final state and hard decay, and two
@@ -139,27 +140,48 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               driver's init to its finish), collect time, block_step p50,
               reduction bytes, spawn and register time, host staging rate,
               peak device memory per worker, the phase's seconds.
-   The LM slices run, qwen3-8b then rwkv6-1.6b, each at full width and
-   depth (f32 weights, random from the seed; each freed before the next):
-11. lm main — ``forward`` through the slice's kernel (K4 for qwen3-8b at
-              B 2 x S 4096, K5 for rwkv6-1.6b at B 8 x T 4096) and
+   The LM slices run in turn (f32 weights, random from the seed; each
+   freed before the next): qwen3-8b, rwkv6-1.6b, olmoe-1b-7b,
+   recurrentgemma-9b and seamless-m4t-large-v2 at full width and depth,
+   qwen2-vl-72b at full width and 4 of its 80 layers; each phase prints its
+   seconds:
+11. lm main — ``forward`` at B 2 x S 4096 (rwkv6: B 8 x T 4096) and
               ``loss_fn``, with the kernel's count set to 0 just before and
-              read just after (one launch per layer and forward; K4's
-              per-route counters: all on the tensor-core route);
-              ``forward`` on the chunked path against it; prefill plus 4
-              decode steps against ``forward``'s logits; then the same at
-              full width, 4 layers and f32 compute with tight bounds
-              (K4: all on the FMA route).
-12. serve   — ``repro_torch.launch.serve.main`` at full size (batch 8,
-              prompt 2048, 64 generated tokens): prefill seconds, decode
-              ms/step and tok/s.
-13. timing  — K4 at the qwen lm shape (B 2, Hq 32, Hkv 16, S 4096, D 128,
-              bf16, causal) against its plain version and
-              ``scaled_dot_product_attention``, and the FMA route on f32
-              copies of the same inputs (printed); K5 at the rwkv lm shape
-              (B 8, H 32, T 4096, hd 64, chunk 16, bf16 r/k/v) against its
-              plain version and the model's torch chunked form (K5 must
-              beat it).
+              read just after: K5 once an rwkv layer; K4 once a layer with
+              unwindowed attention, once more a cross attention and once an
+              encoder layer (olmoe 16, seamless 72, qwen2-vl 4 a forward,
+              recurrentgemma 0: its attention is local, the chunked path),
+              per route (bf16: all on the tensor-core kernel); the inputs
+              per family (stub frames for the encoder-decoder; stub patch
+              embeddings at the M-RoPE positions of a 4 x 32 x 32 grid for
+              the VLM); ``forward`` on the chunked path against it (bf16:
+              fixed bounds, or the nudged-input control for rwkv6 and MoE);
+              prefill plus 4 decode steps against ``forward``'s logits;
+              MoE: the share of (token, expert) pairs dropped at capacity
+              1.25 and a second forward bit for bit; then the same at full
+              width, 2-4 layers and f32 compute with tight bounds (K4 all
+              on the FMA route; MoE at capacity 8, where decode drops
+              nothing).
+12. serve   — ``repro_torch.launch.serve.main`` at batch 8, prompt 2048,
+              64 generated tokens (qwen2-vl with ``--layers 4``): prefill
+              seconds, decode ms/step and tok/s beside the weight-read
+              floor, K4 in prefill only for the encoder (24 launches), K5
+              in every rwkv layer; MoE drop shares in prefill and decode.
+13. timing  — K4 at each LM's shape against its plain version and
+              ``scaled_dot_product_attention`` (qwen3-8b: B 2, Hq 32, Hkv
+              16, S 4096, D 128, causal, and the FMA route on f32 copies;
+              olmoe, seamless (full, D 64) and qwen2-vl records of their
+              own); K5 at the rwkv lm shape (B 8, H 32, T 4096, hd 64,
+              chunk 16, bf16 r/k/v) against its plain version and the
+              model's torch chunked form (K5 must beat it); one MoE FFN
+              against its expert products alone; the RG-LRU doubling scan
+              in f32 at (2, 4096, 4096) against a sequential recurrence,
+              timed beside ``rg_lru`` and the recurrent block.
+   Then the smoke configs of arctic-480b, qwen3-14b, phi3-medium-14b and
+   command-r-35b: ``forward`` in bf16 (K4's FMA route at head dims 8 and
+   16, counted), then f32 against the chunked path and prefill + decode
+   against forward; K4 at head dim 8 timed (record
+   ``K4_flash_attention_d8``).
 14. service — the fit service (DESIGN.md section 15), run inside phase 6
               on its lasso before the data are freed: ``FitServer``
               registers D (one K2b launch, counted; the seconds split into
@@ -186,6 +208,7 @@ the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -240,10 +263,22 @@ SOURCES = {
                                "src/repro/kernels/gram/gram.py:101"),
     "K3_admm_iter": ("src/repro_torch/kernels/csrc/admm_iter.cu",
                      "src/repro/kernels/admm_iter/admm_iter.py:82"),
-    # bf16 at D 64 / 128, the main path's route; f32 and D 16 take
-    # csrc/flash_attn.cu (timed beside it, printed)
+    # bf16 at D 64 / 128, the main path's route; f32 and D 8 / 16 take
+    # csrc/flash_attn.cu (timed beside it, printed); then K4 at the other
+    # LMs' shapes, and at head dim 8 on the FMA route
     "K4_flash_attention": ("src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
                            "src/repro/kernels/flash_attn/flash_attn.py:80"),
+    "K4_flash_attention_olmoe": (
+        "src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
+        "src/repro/kernels/flash_attn/flash_attn.py:80"),
+    "K4_flash_attention_seamless": (
+        "src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
+        "src/repro/kernels/flash_attn/flash_attn.py:80"),
+    "K4_flash_attention_qwen2_vl": (
+        "src/repro_torch/kernels/csrc/flash_attn_sm90.cu",
+        "src/repro/kernels/flash_attn/flash_attn.py:80"),
+    "K4_flash_attention_d8": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                              "src/repro/kernels/flash_attn/flash_attn.py:80"),
     "K5_wkv": ("src/repro_torch/kernels/csrc/wkv.cu",
                "src/repro/kernels/wkv/wkv.py:67"),
     # not the port of a Pallas kernel: the reference's sparse iteration is
@@ -3131,7 +3166,7 @@ def zero_counts(wrapper):
 
 def phase_attn_kernels(torch):
     """K4 against its plain version at small shapes: f32 and bf16, causal
-    and not, GQA groups 1, 2 and 4, head dims 16, 64 and 128, ragged
+    and not, GQA groups 1, 2 and 4, head dims 8, 16, 64 and 128, ragged
     lengths with Sq = Skv and Sq < Skv, and the model's (B, S, H, D)
     layout; each call's route (tensor cores for bf16 at D 64 / 128, FMA
     otherwise) checked by the counters; the tensor-core cases also against
@@ -3149,6 +3184,11 @@ def phase_attn_kernels(torch):
     cases += [(1, 8, 2, 1000, 1000, 128, dt, True, False) for dt in (f32, bf16)]
     cases += [(2, 4, 1, 300, 1000, D, dt, c, False) for c in (True, False)
               for D, dt in ((64, f32), (64, bf16), (128, bf16))]
+    # head dim 8 (the arctic-480b and command-r-35b smoke configs): FMA
+    cases += [(2, 8, 2, 256, 256, 8, dt, causal, False)
+              for dt in (f32, bf16) for causal in (True, False)]
+    cases += [(1, 8, 8, 77, 130, 8, bf16, False, True),
+              (2, 8, 2, 300, 300, 8, f32, True, True)]
     cases += [(2, 4, 2, 77, 77, 16, bf16, True, False),
               (2, 32, 16, 300, 300, 128, bf16, True, True),
               # bf16 at D 64: ragged Skv, and the model's layout
@@ -3251,14 +3291,58 @@ def phase_wkv_kernels(torch):
               f"{err:.2e} <= 2e-5, bitwise repeat, finite, y in r's layout")
 
 
-def serve_parity(torch, params, cfg, tokens, S, n_dec, h_full, cache_dtype):
-    """Prefill on tokens[:, :S] and n_dec decode steps against the logits
-    of the full forward's hidden states at the same positions: (max abs
-    difference, max |logit|)."""
+def lm_inputs(torch, params, cfg, g, B, S, n_long):
+    """One LM's inputs over n_long positions, drawn from the seed: (forward
+    kwargs over n_long positions, the same over the first S, labels (B, S),
+    tokens (B, n_long)). Text families take tokens. The encoder-decoder
+    adds stub frames (B, S, d) x 0.02, its serve CLI's stub. The VLM takes
+    stub patch embeddings (unit variance, as the token embeddings) at the
+    3-stream M-RoPE positions of a t x h x w grid for the first S positions
+    (``mrope_grid``), then text tokens at positions S, S + 1, ... on all
+    three streams, which is what decode_step gives them."""
+    from repro_torch.models.model import embed_tokens
+    dev = torch.device("cuda")
+    V = cfg.vocab_size
+    tokens = torch.randint(0, V, (B, n_long), generator=g, device=dev)
+    labels = torch.randint(0, V, (B, S), generator=g, device=dev)
+    long, short = {"tokens": tokens}, {"tokens": tokens[:, :S]}
+    if cfg.encoder_layers:
+        enc = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+        long["enc_embeds"] = short["enc_embeds"] = 0.02 * enc
+    if cfg.mrope:
+        stub = torch.randn((B, S, cfg.d_model), generator=g,
+                           device=dev).to(cfg.compute_dtype)
+        text = torch.arange(S, n_long, device=dev).expand(3, n_long - S)
+        pos = torch.cat([mrope_grid(torch, S, dev), text], dim=1)
+        pos = pos[:, None].expand(3, B, n_long)
+        long = {"embeds": torch.cat(
+                    [stub, embed_tokens(params, cfg, tokens[:, S:])], dim=1),
+                "positions": pos}
+        short = {"embeds": stub, "positions": pos[..., :S]}
+    return long, short, labels, tokens
+
+
+def mrope_grid(torch, S, dev):
+    """(3, S) temporal / height / width positions of S patches laid out as
+    t frames of an h x h grid (h = sqrt(S / 4): 4 x 32 x 32 at S = 4096),
+    so that the three M-RoPE sections take different angles."""
+    h = int(round((S // 4) ** 0.5))
+    t = S // (h * h)
+    if t * h * h != S:
+        fail(f"mrope_grid: {S} patches are no t x {h} x {h} grid")
+    i = torch.arange(S, device=dev)
+    return torch.stack([i // (h * h), i // h % h, i % h])
+
+
+def serve_parity(torch, params, cfg, short, tokens, S, n_dec, h_full,
+                 cache_dtype):
+    """Prefill on the first S positions (``short``) and n_dec decode steps
+    on tokens[:, S:] against the logits of the full forward's hidden states
+    at the same positions: (max abs difference, max |logit|)."""
     from repro_torch.models.decode import decode_step, prefill
     want = h_full[:, S - 1:S + n_dec].float() @ params["lm_head"].float()
-    lg, caches = prefill(params, cfg, tokens=tokens[:, :S], s_max=S + n_dec,
-                         cache_dtype=cache_dtype)
+    lg, caches = prefill(params, cfg, s_max=S + n_dec,
+                         cache_dtype=cache_dtype, **short)
     got = [lg]
     for t in range(S, S + n_dec):
         lg, caches = decode_step(params, cfg, caches, tokens=tokens[:, t],
@@ -3269,8 +3353,8 @@ def serve_parity(torch, params, cfg, tokens, S, n_dec, h_full, cache_dtype):
 
 
 def lm_kernel(arch: str):
-    """(record name, the kernel's wrapper, the keyword of forward /
-    loss_fn that picks the path) of an LM slice."""
+    """(name of the kernel, its wrapper, the keyword of forward / loss_fn
+    that picks the path) of an LM slice."""
     if LM[arch]["kernel"] == "K4_flash_attention":
         from repro_torch.kernels.flash_attn import ops as attn_ops
         return "K4_flash_attention", attn_ops.flash_attention, "attn_impl"
@@ -3278,29 +3362,65 @@ def lm_kernel(arch: str):
     return "K5_wkv", wkv_ops.wkv, "wkv_impl"
 
 
+def launches_per_forward(cfg, kname: str) -> int:
+    """The kernel's launches in one ``forward``: K5 once a rwkv layer; K4
+    once a layer whose attention has no window (attn, moe, cross; griffin's
+    attn_local takes the chunked path, as in the reference), once more for
+    each cross attention, and once an encoder layer."""
+    from repro_torch.models.model import layer_kinds
+    kinds = layer_kinds(cfg)
+    if kname == "K5_wkv":
+        return kinds.count("rwkv")
+    return sum(k in ("attn", "moe", "cross") for k in kinds) \
+        + kinds.count("cross") + cfg.encoder_layers
+
+
 def extra_params(cfg) -> int:
     """What ``param_count()`` leaves out of the parameter tree."""
-    d, L = cfg.d_model, cfg.num_layers
+    from repro_torch.models.model import layer_kinds
+    d, L, hd = cfg.d_model, cfg.num_layers, cfg.head_dim
     if cfg.family == "rwkv6":
         # channel mix's receptance (d^2), the decay LoRA (4 d r), the
         # vectors beyond two norms (maa_base 5d, decay_base, bonus, gn
         # scale and bias, mu_k, mu_r: 11 d), the final norm
         return L * (d * d + 4 * d * cfg.rwkv_lora_rank + 11 * d) + d
-    # the kv_repeat widening of wk / wv, the qk-norm and final-norm scales
-    return 2 * d * cfg.head_dim * L * (cfg.kv_heads_eff - cfg.num_kv_heads) \
-        + 2 * cfg.head_dim * L * cfg.qk_norm + d
+    kinds = layer_kinds(cfg)
+    # each attention module's kv_repeat widening of wk / wv and its
+    # qk-norm scales (cross attention and the encoder's included), the
+    # final norm and the encoder's
+    n_att = sum(k != "rec" for k in kinds) + kinds.count("cross") \
+        + cfg.encoder_layers
+    extra = n_att * (2 * d * hd * (cfg.kv_heads_eff - cfg.num_kv_heads)
+                     + 2 * hd * cfg.qk_norm) + d + d * bool(cfg.encoder_layers)
+    if cfg.family == "griffin":
+        # param_count() counts every layer as a recurrent block without
+        # its (lw, lw) gates w_a, w_i; attn_local layers hold attention
+        lw, H = cfg.lru_width, cfg.num_heads
+        rec = 3 * d * lw + lw * cfg.conv_width + 2 * lw
+        att = 2 * d * H * hd + 2 * d * cfg.num_kv_heads * hd
+        n_rec = kinds.count("rec")
+        extra += n_rec * 2 * lw * lw + kinds.count("attn_local") * (att - rec)
+    return extra
 
 
-def nudged_embeddings(torch, params, cfg, tokens):
-    """The embeddings of ``tokens`` with 0.1 % of their elements (drawn
-    from the seed) multiplied by 1 + 2^-7: moved by one or two bf16 ulps,
-    the size of a rounding that two orders of summation can disagree on."""
-    from repro_torch.models.model import embed_tokens
-    emb = embed_tokens(params, cfg, tokens)
+def nudged(torch, emb, share):
+    """``emb`` with a ``share`` of its elements (drawn from the seed)
+    multiplied by 1 + 2^-7: moved by one or two bf16 ulps, the size of a
+    rounding that two orders of summation can disagree on."""
     g = torch.Generator(device=emb.device).manual_seed(SEED + 5)
-    moved = torch.rand(emb.shape, generator=g, device=emb.device) < 1e-3
+    moved = torch.rand(emb.shape, generator=g, device=emb.device) < share
     return torch.where(moved, (emb.float() * (1 + 2 ** -7)).to(emb.dtype),
                        emb)
+
+
+def nudged_inputs(torch, params, cfg, inputs, share):
+    """``inputs`` with their decoder embeddings nudged (``nudged``)."""
+    from repro_torch.models.model import embed_tokens
+    out = {k: v for k, v in inputs.items() if k != "tokens"}
+    emb = inputs["embeds"] if "embeds" in inputs \
+        else embed_tokens(params, cfg, inputs["tokens"])
+    out["embeds"] = nudged(torch, emb, share)
+    return out
 
 
 def rel_diffs(torch, got, want):
@@ -3310,16 +3430,86 @@ def rel_diffs(torch, got, want):
     return float(d.max() / w.max()), float(d.mean() / w.mean())
 
 
-def phase_lm(torch, rt, arch, sh, smoke: bool):
+def drop_share(stats, routed=None) -> float:
+    """The share of routed (token, expert) pairs that capacity dropped, over
+    the ``moe.DROP_STATS`` entries (of ``routed`` pairs a call, if given)."""
+    rows = [(int(k), r) for k, r in stats if routed in (None, r)]
+    total = sum(r for _, r in rows)
+    return 1.0 - sum(k for k, _ in rows) / max(total, 1)
+
+
+@contextlib.contextmanager
+def moe_routes(torch, record=None, replay=None):
+    """Within it, each ``moe.route_topk`` call appends its (T, k) experts
+    to ``record``; with ``replay`` (a list that ``record`` filled on a
+    forward of the same shapes) each call takes the matching call's
+    experts in place of its own top-k, weighted by its own renormalised
+    probabilities. A forward that replays its own routes is unchanged, bit
+    for bit."""
+    from repro_torch.models import moe as moe_lib
+    own = moe_lib.route_topk
+    calls = None if replay is None else iter(replay)
+
+    def route(logits, k):
+        w, i, aux = own(logits, k)
+        if calls is not None:
+            i = next(calls)
+            p = torch.softmax(logits, dim=-1).gather(1, i)
+            w = p / p.sum(dim=-1, keepdim=True)
+        if record is not None:
+            record.append(i.contiguous())
+        return w, i, aux
+
+    moe_lib.route_topk = route
+    try:
+        yield
+    finally:
+        moe_lib.route_topk = own
+
+
+def flips(torch, ra, rb, B, S):
+    """Two forwards' routes (``moe_routes`` records), compared over the
+    first S tokens of each of B rows: (the share of tokens sent to another
+    set of experts in some layer, the share of (token, layer) pairs)."""
+    any_layer, pairs = torch.zeros((B, S), dtype=torch.bool,
+                                   device=ra[0].device), 0.0
+    for a, b in zip(ra, rb, strict=True):
+        a, b = (r.reshape(B, -1, r.shape[-1])[:, :S].sort(dim=-1).values
+                for r in (a, b))
+        moved = (a != b).any(dim=-1)
+        any_layer |= moved
+        pairs += float(moved.float().mean())
+    return float(any_layer.float().mean()), pairs / len(ra)
+
+
+def parity_capacity(cfg) -> float:
+    """The capacity factor of the runs that hold prefill + decode to
+    forward: 8 for MoE, where nothing drops (decode routes B tokens a step,
+    whose capacity drops pairs the forward keeps; the reference's
+    tests/test_decode_parity.py runs MoE at 8 too), else the config's."""
+    return 8.0 if cfg.family == "moe" else cfg.capacity_factor
+
+
+def lm_config(arch, sh, smoke: bool):
+    """The arch's config (smoke or full), its depth cut to ``sh["layers"]``."""
     import repro_torch.configs as configs
+    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    if sh.get("layers"):    # depth cut to fit the card
+        cfg = dataclasses.replace(cfg, num_layers=sh["layers"])
+    return cfg
+
+
+def phase_lm(torch, rt, arch, sh, smoke: bool):
     from repro_torch.kernels.flash_attn.ops import route
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models.model import forward, init_params, loss_fn, \
         tree_map
 
+    spec = LM[arch]
     kname, wrapper, impl_kw = lm_kernel(arch)
     xla = {impl_kw: "xla"}
     dev = torch.device("cuda")
-    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    cfg = lm_config(arch, sh, smoke)
     g = torch.Generator(device=dev).manual_seed(SEED)
     B, S, n_dec = sh["batch"], sh["seq"], sh["decode"]
     # the long forward covers the decode positions; an rwkv forward takes
@@ -3327,6 +3517,7 @@ def phase_lm(torch, rt, arch, sh, smoke: bool):
     step = cfg.wkv_chunk if cfg.family == "rwkv6" else 1
     n_long = S + -(-n_dec // step) * step
     V = cfg.vocab_size
+    moe = cfg.family == "moe"
     t0 = time.perf_counter()
     params = init_params(cfg, g)
     torch.cuda.synchronize()
@@ -3334,180 +3525,276 @@ def phase_lm(torch, rt, arch, sh, smoke: bool):
     tree_map(lambda t: sizes.append(t.numel()), params)
     n_par = sum(sizes)
     extra = extra_params(cfg)
-    print(f"lm: {cfg.name}, {cfg.num_layers} layers, d {cfg.d_model}, "
-          f"{cfg.num_heads} heads, vocab {V}: {n_par} parameters f32 "
-          f"({n_par * 4 / 1e9:.1f} GB) in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    print(f"lm: {cfg.name}, {cfg.num_layers} layers"
+          f"{f' (+ {cfg.encoder_layers} encoder)' if cfg.encoder_layers else ''}"
+          f", d {cfg.d_model}, {cfg.num_heads} heads, vocab {V}: {n_par} "
+          f"parameters f32 ({n_par * 4 / 1e9:.1f} GB) in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     check(n_par == cfg.param_count() + extra,
           f"lm: parameter count {n_par} = param_count() + {extra} (what "
           "the formula leaves out)")
-    tokens = torch.randint(0, V, (B, n_long), generator=g, device=dev)
-    labels = torch.randint(0, V, (B, S), generator=g, device=dev)
+    long, short, labels, tokens = lm_inputs(torch, params, cfg, g, B, S,
+                                            n_long)
+    per_fwd = launches_per_forward(cfg, kname)
 
     with torch.inference_mode():
         # the main path: counts set to 0 just before and read just after
         zero_counts(wrapper)
+        moe_lib.DROP_STATS = [] if moe else None
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        h_k, _ = forward(params, cfg, tokens=tokens[:, :S])
+        h_k, _ = forward(params, cfg, **short)
         torch.cuda.synchronize()
         t_fwd = time.perf_counter() - t0
+        stats, moe_lib.DROP_STATS = moe_lib.DROP_STATS, None
         t0 = time.perf_counter()
-        loss, met = loss_fn(params, cfg, {"tokens": tokens[:, :S],
-                                          "labels": labels})
+        loss, met = loss_fn(params, cfg, {**short, "labels": labels})
         loss = float(loss)
         t_loss = time.perf_counter() - t0
-        h_long, _ = forward(params, cfg, tokens=tokens)
+        h_long, _ = forward(params, cfg, **long)
         torch.cuda.synchronize()
         launches = wrapper.launches
         routes = route_counts(wrapper)
         peak = torch.cuda.max_memory_allocated() / 1e9
-        check(launches == 3 * cfg.num_layers,
+        check(launches == 3 * per_fwd,
               f"lm main path: {kname} launched {launches} times = "
-              f"{cfg.num_layers} layers x 3 forwards")
+              f"{per_fwd} a forward x 3 forwards")
         if routes is not None:
-            # qwen3-8b: bf16 at head dim 128, every launch on the
-            # tensor-core kernel (the smoke config's head dim 16: FMA)
+            # bf16 at head dims 64 / 128: every launch on the tensor-core
+            # kernel (the smoke configs' head dims 8 and 16: FMA)
             want = route(cfg.compute_dtype, cfg.head_dim)
             check(routes == {r: launches * (r == want) for r in routes},
                   f"lm main path: {kname} routes {routes}: all "
                   f"{launches} on the {want} kernel")
-        rt["launches"][kname] = launches
+        rt["launches"][spec.get("record", kname)] = launches
         print(f"lm forward {B}x{S}: {t_fwd:.3f} s "
               f"({B * S / t_fwd:.0f} tok/s); loss_fn {t_loss:.3f} s; "
               f"peak device memory {peak:.2f} GB", flush=True)
-
-        t0 = time.perf_counter()
-        h_x, _ = forward(params, cfg, tokens=tokens[:, :S], **xla)
-        torch.cuda.synchronize()
-        print(f"lm forward {B}x{S}, {impl_kw}='xla' (chunked): "
-              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        if moe:
+            print(f"lm: MoE capacity factor {cfg.capacity_factor}: "
+                  f"{drop_share(stats):.4f} of the {B * S} x "
+                  f"{cfg.experts_per_token} (token, expert) pairs dropped in "
+                  f"forward, over {len(stats)} layers", flush=True)
+            r_k = []
+            with moe_routes(torch, record=r_k):
+                h_again, _ = forward(params, cfg, **short)
+            check(torch.equal(h_again, h_k),
+                  "lm: a second forward gives bit-identical hidden states "
+                  "(the MoE combine has no atomics)")
+            with moe_routes(torch, replay=r_k):
+                h_again, _ = forward(params, cfg, **short)
+            check(torch.equal(h_again, h_k),
+                  "lm: a forward that replays its own expert choices gives "
+                  "bit-identical hidden states (routing can be pinned)")
+            del h_again
         check(h_k.shape == (B, S, cfg.d_model) and h_k.dtype == torch.bfloat16
               and bool(torch.isfinite(h_k).all()),
               f"lm: hidden states finite, ({B}, {S}, {cfg.d_model}) bf16")
-        e_max, e_mean = rel_diffs(torch, h_k, h_x)
+
         # bf16 compute: each layer rounds its mixer's output to bf16, so
         # the two paths first differ by an occasional bf16 ulp (2^-8
         # relative), and random layers amplify that everywhere. qwen3-8b
         # reaches a few percent (3.4e-2 max, 2.1e-2 mean on one H100) and
-        # is held to fixed bounds. rwkv6-1.6b grows it to 1e-1 - 2e-1 over
-        # 24 layers, from ~1e-5 (mean) within one layer; the same forward
-        # grows a one-or-two-ulp change of 0.1 % of its input elements
-        # further (PERF.md). So rwkv is held to that control: the kernel
-        # may change the result no more than such a change of the input
-        # does. The kernel itself is held tightly by the f32 run below and
-        # the kernel phases.
-        control = LM[arch]["bf16_control"]
+        # is held to fixed bounds, as are the dense-like families. rwkv6-
+        # 1.6b grows it to 1e-1 - 2e-1 over 24 layers, from ~1e-5 (mean)
+        # within one layer. The same forward grows a one-or-two-ulp change
+        # of 0.1 % of its input elements just as far (PERF.md). So rwkv6
+        # and MoE are held to that control: the kernel may change the
+        # result no more than such a change of the input does. The kernel
+        # itself is held tightly by the f32 run below and the kernel
+        # phases. MoE turns a small difference into another expert for a
+        # token whose k-th and (k+1)-th router probabilities are that
+        # close, and such a token moves by O(1) whichever perturbation
+        # made it change: the largest element of either difference is a
+        # routing flip's and says nothing of the kernel, so there the
+        # control holds the mean (how many tokens moved) and the max is
+        # printed with the share of tokens that changed experts. Then
+        # both paths run again with the experts pinned to the kernel
+        # path's choices (``moe_routes``): no token can flip, and the
+        # difference, the kernel's alone, is held to the dense families'
+        # fixed bounds.
+        control = spec["bf16_control"]
+        h_c = None
         if control:
-            h_c, _ = forward(params, cfg, embeds=nudged_embeddings(
-                torch, params, cfg, tokens))
+            r_c, r_l = [], []
+            with moe_routes(torch, record=r_c):
+                h_c, _ = forward(params, cfg, **nudged_inputs(
+                    torch, params, cfg, long, control))
+            if moe:     # h_long's routes
+                with moe_routes(torch, record=r_l):
+                    forward(params, cfg, **long)
             b_max, b_mean = rel_diffs(torch, h_c[:, :S], h_long[:, :S])
-            what = "the nudged-input control"
+            what = f"the nudged-input control, {control:.1%} of the inputs"
         else:
             b_max, b_mean = 1e-1, 5e-2
             what = "fixed"
-        check(e_max <= b_max and e_mean <= b_mean,
-              f"lm: {kname} vs chunked hidden states, bf16, "
-              f"{cfg.num_layers} layers: max |dh| / max |h| {e_max:.2e} <= "
-              f"{b_max:.2e}, mean |dh| / mean |h| {e_mean:.2e} <= "
-              f"{b_mean:.2e} ({what})")
+        if per_fwd:
+            r_x = []
+            t0 = time.perf_counter()
+            with moe_routes(torch, record=r_x):
+                h_x, _ = forward(params, cfg, **short, **xla)
+            torch.cuda.synchronize()
+            print(f"lm forward {B}x{S}, {impl_kw}='xla' (chunked): "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            e_max, e_mean = rel_diffs(torch, h_k, h_x)
+            head = (f"lm: {kname} vs chunked hidden states, bf16, "
+                    f"{cfg.num_layers} layers")
+            if moe:
+                f_e, p_e = flips(torch, r_x, r_k, B, S)
+                f_c, p_c = flips(torch, r_c, r_l, B, S)
+                check(e_mean <= b_mean,
+                      f"{head}: mean |dh| / mean |h| {e_mean:.2e} <= "
+                      f"{b_mean:.2e} ({what}); not held: max |dh| / max "
+                      f"|h| {e_max:.2e} (control {b_max:.2e}), tokens that "
+                      f"changed experts in some layer {f_e:.2%} (control "
+                      f"{f_c:.2%}), (token, layer) pairs {p_e:.2%} (control "
+                      f"{p_c:.2%})")
+                with moe_routes(torch, replay=r_k):
+                    h_x, _ = forward(params, cfg, **short, **xla)
+                e_max, e_mean = rel_diffs(torch, h_k, h_x)
+                del r_k, r_x, r_c, r_l
+                head += ", experts pinned to the kernel path's"
+                p_max, p_mean, p_what = 1e-1, 5e-2, "fixed"
+            else:
+                p_max, p_mean, p_what = b_max, b_mean, what
+            del h_x
+            check(e_max <= p_max and e_mean <= p_mean,
+                  f"{head}: max |dh| / max |h| {e_max:.2e} <= {p_max:.2e}, "
+                  f"mean |dh| / mean |h| {e_mean:.2e} <= {p_mean:.2e} "
+                  f"({p_what})")
+        else:
+            print(f"lm: {kname} is not on {cfg.name}'s path (0 launches "
+                  "checked): no kernel-against-chunked comparison",
+                  flush=True)
         ln_v = math.log(V)
         # random weights and labels: ce = ln V + var(logit) / 2, logits
-        # of unit variance, plus a 1e-4 z-loss
+        # of unit variance, plus a 1e-4 z-loss (and the router aux loss)
         check(math.isfinite(loss) and abs(loss - ln_v) <= 1.5,
-              f"lm: loss_fn {loss:.4f} (ce {float(met['ce']):.4f}) within "
-              f"1.5 of ln V = {ln_v:.2f}")
-        del h_x
-        err, top = serve_parity(torch, params, cfg, tokens, S, n_dec, h_long,
-                                torch.bfloat16)
-        if control:
-            b_err = float(((h_c[:, S - 1:S + n_dec].float()
-                            - h_long[:, S - 1:S + n_dec].float())
-                           @ params["lm_head"].float()).abs().max())
-            del h_c
+              f"lm: loss_fn {loss:.4f} (ce {float(met['ce']):.4f}, aux "
+              f"{float(met['aux']):.4f}) within 1.5 of ln V = {ln_v:.2f}")
+        if not moe:
+            err, top = serve_parity(torch, params, cfg, short, tokens, S,
+                                    n_dec, h_long, torch.bfloat16)
+            if control:
+                b_err = float(((h_c[:, S - 1:S + n_dec].float()
+                                - h_long[:, S - 1:S + n_dec].float())
+                               @ params["lm_head"].float()).abs().max())
+            else:
+                b_err = 5e-2 * top
+            check(err <= b_err,
+                  f"lm: prefill {B}x{S} + {n_dec} decode steps, bf16 caches, "
+                  f"vs forward logits: max err {err:.3e} <= {b_err:.3e} "
+                  f"({what}; max |logit| {top:.3f})")
         else:
-            b_err = 5e-2 * top
-        check(err <= b_err,
-              f"lm: prefill {B}x{S} + {n_dec} decode steps, bf16 caches, vs "
-              f"forward logits: max err {err:.3e} <= {b_err:.3e} ({what}; "
-              f"max |logit| {top:.3f})")
-    del params, h_k, h_long
+            # MoE: decode routes B tokens at a time, whose capacity (1 slot
+            # an expert at 1.25) drops pairs the forward keeps; the f32 run
+            # below checks serving at a capacity where nothing drops
+            print(f"lm: bf16 serving parity left to the f32 run "
+                  f"(capacity {parity_capacity(cfg)})", flush=True)
+    del params, h_k, h_long, h_c, long, short
     print(f"lm: freed, {free_device_memory(torch):.2f} GB still allocated",
           flush=True)
 
-    # full width, f32 compute, a few layers: tight bounds
-    cfg = dataclasses.replace(cfg, num_layers=sh["f32_layers"],
-                              compute_dtype=torch.float32)
+    # full width, f32 compute, a few layers: tight bounds. MoE runs at a
+    # capacity where nothing drops, so that serving (B tokens a decode
+    # step) and forward route alike.
+    n32 = sh["f32_layers"]
+    cfg = dataclasses.replace(
+        cfg, num_layers=n32, compute_dtype=torch.float32,
+        encoder_layers=min(cfg.encoder_layers, n32),
+        capacity_factor=parity_capacity(cfg))
     params = init_params(cfg, g)
+    long, short, _, tokens = lm_inputs(torch, params, cfg, g, B, S, n_long)
+    per_fwd = launches_per_forward(cfg, kname)
     with torch.inference_mode():
         before, routes = wrapper.launches, route_counts(wrapper)
-        h_k, _ = forward(params, cfg, tokens=tokens)
-        h_x, _ = forward(params, cfg, tokens=tokens, **xla)
+        h_k, _ = forward(params, cfg, **long)
+        h_x, _ = forward(params, cfg, **long, **xla)
         torch.cuda.synchronize()
-        check(wrapper.launches - before == cfg.num_layers,
-              f"lm f32 {cfg.num_layers} layers: {kname} launched once a "
-              "layer")
+        check(wrapper.launches - before == per_fwd,
+              f"lm f32 {cfg.num_layers} layers: {kname} launched "
+              f"{wrapper.launches - before} = {per_fwd} times a forward")
         if routes is not None:
             moved = {r: n - routes[r] for r, n in
                      route_counts(wrapper).items()}
             want = route(cfg.compute_dtype, cfg.head_dim)
             check(want == "fma" and moved == {
-                      r: cfg.num_layers * (r == want) for r in moved},
+                      r: per_fwd * (r == want) for r in moved},
                   f"lm f32 {cfg.num_layers} layers: {kname} routes "
                   f"{moved}: all on the FMA kernel")
         e = float((h_k - h_x).abs().max() / h_x.abs().max())
         check(bool(torch.isfinite(h_k).all()) and e <= 1e-4,
               f"lm f32 {cfg.num_layers} layers, {B}x{n_long}: {kname} vs "
               f"chunked hidden states max |dh| / max |h| {e:.2e} <= 1e-4")
-        err, top = serve_parity(torch, params, cfg, tokens, S, n_dec, h_k,
-                                torch.float32)
+        err, top = serve_parity(torch, params, cfg, short, tokens, S, n_dec,
+                                h_k, torch.float32)
         check(err <= 2e-4 * top,
               f"lm f32 {cfg.num_layers} layers: prefill + {n_dec} decode "
               f"steps, f32 caches, vs forward logits: max err {err:.3e} <= "
               f"2e-4 x max |logit| {top:.3f}")
-    del params, h_k, h_x
+    del params, h_k, h_x, long, short
     free_device_memory(torch)
 
 
-def phase_serve(torch, arch, sh, smoke: bool):
-    import repro_torch.configs as configs
+def phase_serve(torch, rt, arch, sh, smoke: bool):
     from repro_torch.launch import serve
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import layer_kinds
 
     kname, wrapper, _ = lm_kernel(arch)
+    cfg = lm_config(arch, sh, smoke)
     B, prompt, n = sh["serve"]
     args = ["--arch", arch, "--batch", str(B), "--prompt-len", str(prompt),
             "--gen", str(n), "--seed", str(SEED)] + (["--smoke"] * smoke)
-    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    if sh.get("layers"):
+        args += ["--layers", str(sh["layers"])]
+    moe = cfg.family == "moe"
+    moe_lib.DROP_STATS = [] if moe else None
     before = wrapper.launches
     t0 = time.perf_counter()
     print(f"serve: {' '.join(args)}", flush=True)
     gen = serve.main(args)
     secs = time.perf_counter() - t0
+    stats, moe_lib.DROP_STATS = moe_lib.DROP_STATS, None
     check(gen.shape == (B, n) and int(gen.min()) >= 0
           and int(gen.max()) < cfg.vocab_size,
           f"serve: ({B}, {n}) generated tokens in the vocabulary, "
           f"{secs:.1f} s with weight init")
-    # attention: prefill runs the chunked path and decode the einsum step,
-    # as the reference does, so K4 is not on it; rwkv: prefill runs K5 in
-    # every layer, decode the per-step recurrence
-    want = cfg.num_layers if kname == "K5_wkv" else 0
+    # attention: prefill runs the decoder's chunked path and decode the
+    # einsum step, as the reference does, so K4 is on it only in the
+    # encoder of an encoder-decoder (once an encoder layer); rwkv: prefill
+    # runs K5 in every layer, decode the per-step recurrence
+    want = layer_kinds(cfg).count("rwkv") if kname == "K5_wkv" \
+        else cfg.encoder_layers
     check(wrapper.launches - before == want,
           f"serve: {kname} launched {wrapper.launches - before} times = "
           f"{want} (prefill)")
+    n_par = cfg.param_count() + extra_params(cfg)
+    floor = n_par * 4 / rt["peaks"][0] * 1e3
+    print(f"serve: decode weight-read floor {floor:.2f} ms/step (f32 weights "
+          f"{n_par * 4 / 1e9:.1f} GB over {rt['peaks'][0] / 1e12:.2f} TB/s)",
+          flush=True)
+    if moe:
+        k = cfg.experts_per_token
+        print(f"serve: MoE capacity factor {cfg.capacity_factor}: dropped "
+              f"{drop_share(stats, B * prompt * k):.4f} of the pairs in "
+              f"prefill ({B}x{prompt} tokens a layer), "
+              f"{drop_share(stats, B * k):.4f} in decode ({B} tokens a "
+              "layer and step)", flush=True)
     del gen
     free_device_memory(torch)
 
 
-def phase_attn_timing(torch, rt, reps: int, sh, smoke: bool):
-    import repro_torch.configs as configs
+def time_k4(torch, rt, reps, name, B, Hq, Hkv, S, D, causal,
+            plain_reps=3):
+    """K4 at one of the main path's shapes, bf16 in the model's (B, S, H,
+    D) layout: against its plain version (and, on the tensor-core route,
+    the plain version with P rounded to bf16) and
+    ``scaled_dot_product_attention``, bitwise repeat; the record ``name``.
+    Returns (q, k, v, kernel ms, operations)."""
     from repro_torch.kernels.flash_attn import ops as attn_ops
     sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    arch = "qwen3-8b"
-    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
-    B, S = sh["batch"], sh["seq"]
-    Hq, Hkv, D = cfg.num_heads, cfg.kv_heads_eff, cfg.head_dim
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
 
@@ -3516,32 +3803,51 @@ def phase_attn_timing(torch, rt, reps: int, sh, smoke: bool):
                            device=dev).to(torch.bfloat16).transpose(1, 2)
 
     q, k, v = make(Hq), make(Hkv), make(Hkv)
-    kern = lambda: attn_ops.flash_attention(q, k, v, causal=True)
-    plain = lambda: attn_ops.flash_attention_plain(q, k, v, causal=True)
-    lib = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    kern = lambda: attn_ops.flash_attention(q, k, v, causal=causal)
+    plain = lambda: attn_ops.flash_attention_plain(q, k, v, causal=causal)
+    lib = lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
     o, p, yard = kern(), plain(), lib()
-    pb = attn_ops.flash_attention_plain(q, k, v, causal=True,
-                                        p_dtype=torch.bfloat16)
+    tc = attn_ops.route(q.dtype, D) == "tc"
+    e_t = 0.0
+    if tc:
+        pb = attn_ops.flash_attention_plain(q, k, v, causal=causal,
+                                            p_dtype=torch.bfloat16)
+        e_t = tc_err(torch, o, pb)
+        del pb
     err = float((o.float() - p.float()).abs().max())
     e_lib = float((yard.float() - p.float()).abs().max())
-    e_t = tc_err(torch, o, pb)
-    tc = attn_ops.route(q.dtype, D) == "tc"    # not at the smoke config's D
-    check(err <= 2e-2 and (e_t <= TC_ABS or not tc)
-          and torch.equal(o, kern()),
-          f"K4 at B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} bf16 causal: err "
+    check(err <= 2e-2 and e_t <= TC_ABS and torch.equal(o, kern()),
+          f"K4 at B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} bf16 "
+          f"{'causal' if causal else 'full'} [{'tc' if tc else 'fma'}]: err "
           f"{err:.2e} <= 2e-2, vs bf16-P plain beyond one output ulp "
           f"{e_t:.2e} <= {TC_ABS:g}, bitwise repeat (sdpa vs plain "
           f"{e_lib:.2e})")
-    del o, p, pb, yard
-    nflops = 4 * D * B * Hq * S * (S + 1) // 2
+    del o, p, yard
+    pairs = S * (S + 1) // 2 if causal else S * S
+    nflops = 4 * D * B * Hq * pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     timer = Timer(torch, reps)
     k_ms = timer(kern)
-    record(rt, "K4_flash_attention", err, k_ms, timer(plain),
+    # the bound takes the peak of the operands' type (bf16), whichever
+    # route runs them: the FMA kernel's FP32 units do not lower it
+    record(rt, name, err, k_ms, Timer(torch, plain_reps)(plain),
            bound(rt, nbytes, nflops, peak="bf16"), timer(lib))
-    print(f"K4 work: {nflops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
-          f"{nflops / k_ms / 1e9:.2f} TFLOP/s achieved; bound at the FP32 "
-          f"peak {nflops / rt['peaks'][1] * 1e3:.3f} ms", flush=True)
+    print(f"{name} work: {nflops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
+          f"{nflops / k_ms / 1e9:.2f} TFLOP/s achieved", flush=True)
+    return q, k, v, k_ms, nflops
+
+
+def phase_attn_timing(torch, rt, reps: int, arch, sh, smoke: bool):
+    """K4 at the qwen lm shape, then its FMA route on f32 copies of the
+    same inputs (printed)."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    cfg = lm_config(arch, sh, smoke)
+    B, S, D = sh["batch"], sh["seq"], cfg.head_dim
+    q, k, v, k_ms, nflops = time_k4(torch, rt, reps, "K4_flash_attention", B,
+                                    cfg.num_heads, cfg.kv_heads_eff, S, D,
+                                    True, plain_reps=reps)
+    print(f"K4: bound at the FP32 peak {nflops / rt['peaks'][1] * 1e3:.3f} "
+          "ms", flush=True)
     # the FMA route on f32 copies of the same inputs (same layout)
     qf, kf, vf = q.float(), k.float(), v.float()
     fma = lambda: attn_ops.flash_attention(qf, kf, vf, causal=True)
@@ -3553,10 +3859,169 @@ def phase_attn_timing(torch, rt, reps: int, sh, smoke: bool):
           and e_f <= 1e-4,
           f"K4 FMA route at the same shape, f32: err {e_f:.2e} <= 1e-4")
     del of, pf
-    f_ms = timer(fma)
+    f_ms = Timer(torch, reps)(fma)
     print(f"time K4 FMA route (flash_attn.cu), f32 inputs: {f_ms:.3f} ms, "
           f"{nflops / f_ms / 1e9:.2f} TFLOP/s; bound at the FP32 peak "
           f"{nflops / rt['peaks'][1] * 1e3:.3f} ms", flush=True)
+
+
+def phase_k4_timing(torch, rt, reps: int, arch, sh, smoke: bool):
+    """K4 at an LM's main-path shape (the encoder-decoder's: full, the
+    encoder's and the cross attention's, with S_enc = S), record
+    ``LM[arch]["record"]``."""
+    cfg = lm_config(arch, sh, smoke)
+    time_k4(torch, rt, reps, LM[arch]["record"], sh["batch"],
+            cfg.num_heads, cfg.kv_heads_eff, sh["seq"], cfg.head_dim,
+            not cfg.encoder_layers)
+    free_device_memory(torch)
+
+
+def phase_moe_timing(torch, rt, reps: int, arch, sh, smoke: bool):
+    """K4 at olmoe's shape, then one MoE FFN at the forward's shape (B x S
+    tokens, bf16, capacity 1.25): ``moe_ffn`` against its three expert
+    products alone (the rest is routing, dispatch and combine), and
+    against itself bit for bit."""
+    from repro_torch.models import moe as moe_lib
+    phase_k4_timing(torch, rt, reps, arch, sh, smoke)
+    cfg = lm_config(arch, sh, smoke)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    p = moe_lib.init_moe(g, cfg)
+    B, S = sh["batch"], sh["seq"]
+    E, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    C = moe_lib.capacity(cfg, B * S)
+    x = torch.randn((B, S, d), generator=g, device=dev).bfloat16()
+    xe = torch.randn((E, C, d), generator=g, device=dev).bfloat16()
+    with torch.inference_mode():
+        full = lambda: moe_lib.moe_ffn(p, cfg, x)[0]
+        check(torch.equal(full(), full()),
+              f"moe_ffn at {B}x{S} tokens: bit-identical repeat")
+
+        def experts():
+            h = torch.nn.functional.silu(
+                torch.bmm(xe, p["we1"].bfloat16())) \
+                * torch.bmm(xe, p["we3"].bfloat16())
+            return torch.bmm(h, p["we2"].bfloat16())
+        timer = Timer(torch, reps)
+        t_full, t_exp = timer(full), timer(experts)
+    flops = 2 * 3 * E * C * d * f
+    print(f"time moe_ffn at {B}x{S} tokens, E {E}, top-{cfg.experts_per_token}"
+          f", C {C}, bf16: {t_full:.3f} ms; its expert products alone (with "
+          f"the f32 -> bf16 weight casts) {t_exp:.3f} ms "
+          f"({t_exp / t_full:.1%}; {flops / t_exp / 1e9:.1f} TFLOP/s); "
+          f"routing, dispatch and combine {t_full - t_exp:.3f} ms",
+          flush=True)
+    del p, x, xe
+    free_device_memory(torch)
+
+
+def phase_scan_timing(torch, rt, reps: int, arch, sh, smoke: bool):
+    """The RG-LRU's doubling scan (``griffin.scan_affine``) in f32 at
+    (B, S, lru_width) against a sequential recurrence (1e-5 relative to
+    max |h|); its time beside ``rg_lru``'s and the whole recurrent
+    block's at the forward's shape (bf16 compute)."""
+    from repro_torch.models import griffin
+    cfg = lm_config(arch, sh, smoke)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    B, S, lw = sh["batch"], sh["seq"], cfg.lru_width
+    # a in (0, 1) as exp(-8 softplus(0.7) r) gives it, b of unit size
+    a = torch.exp(-8.0 * 1.1032 * torch.rand((B, S, lw), generator=g,
+                                              device=dev))
+    b = torch.randn((B, S, lw), generator=g, device=dev)
+    with torch.inference_mode():
+        got = griffin.scan_affine(a, b)
+        h = torch.zeros((B, lw), device=dev)
+        want = torch.empty_like(b)
+        for t in range(S):
+            h = a[:, t] * h + b[:, t]
+            want[:, t] = h
+        e = float((got - want).abs().max() / want.abs().max())
+        check(e <= 1e-5, f"RG-LRU doubling scan at ({B}, {S}, {lw}) f32 vs "
+              f"the sequential recurrence: max |dh| / max |h| {e:.2e} <= "
+              "1e-5")
+        p = griffin.init_recurrent_block(g, cfg)
+        x = torch.randn((B, S, cfg.d_model), generator=g,
+                        device=dev).to(cfg.compute_dtype)
+        u = torch.randn((B, S, lw), generator=g,
+                        device=dev).to(cfg.compute_dtype)
+        timer = Timer(torch, reps)
+        t_scan = timer(lambda: griffin.scan_affine(a, b))
+        t_lru = timer(lambda: griffin.rg_lru(p, u))
+        t_block = timer(lambda: griffin.recurrent_block(p, cfg, x))
+    steps = math.ceil(math.log2(S))
+    print(f"time RG-LRU at ({B}, {S}, {lw}): doubling scan {t_scan:.3f} ms "
+          f"({steps} steps; {t_scan / t_block:.1%} of the block), rg_lru "
+          f"{t_lru:.3f} ms, recurrent_block {t_block:.3f} ms; the scan's "
+          f"byte floor {3 * a.numel() * 4 / rt['peaks'][0] * 1e3:.3f} ms "
+          "(read a and b, write h)", flush=True)
+    del a, b, got, want, p, x, u
+    free_device_memory(torch)
+
+
+SMOKE_ARCHS = ("arctic-480b", "qwen3-14b", "phi3-medium-14b",
+               "command-r-35b")
+
+
+def phase_lm_smoke_configs(torch, rt, reps: int, B=2, S=256, n_dec=4):
+    """The four configs that run only at their smoke sizes here (arctic-
+    480b does not fit one card; the three dense ones run qwen3-8b's path):
+    forward as published (bf16; K4 counted by route: FMA, head dims 8 and
+    16), then in f32 (capacity 8 for arctic's MoE, so nothing drops) the
+    forward against the chunked path (1e-4) and prefill + decode against
+    it (2e-4 x max |logit|). K4 at head dim 8 timed, record
+    ``K4_flash_attention_d8`` (its launches: the D 8 bf16 forwards)."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.models.model import forward, init_params, loss_fn
+    fa = attn_ops.flash_attention
+    dev = torch.device("cuda")
+    d8 = 0
+    for arch in SMOKE_ARCHS:
+        cfg = configs.get_smoke(arch)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(cfg, g)
+        long, short, labels, tokens = lm_inputs(torch, params, cfg, g, B, S,
+                                                S + n_dec)
+        per = launches_per_forward(cfg, "K4_flash_attention")
+        want = attn_ops.route(cfg.compute_dtype, cfg.head_dim)
+        with torch.inference_mode():
+            before = route_counts(fa)
+            h, _ = forward(params, cfg, **short)
+            torch.cuda.synchronize()
+            moved = {r: n - before[r] for r, n in route_counts(fa).items()}
+            loss = float(loss_fn(params, cfg, {**short, "labels": labels})[0])
+            check(moved == {r: per * (r == want) for r in moved}
+                  and bool(torch.isfinite(h).all())
+                  and abs(loss - math.log(cfg.vocab_size)) <= 1.5,
+                  f"lm smoke {arch} (head dim {cfg.head_dim}, bf16): K4 "
+                  f"routes {moved} = {per} on {want}; hidden states finite; "
+                  f"loss {loss:.3f} within 1.5 of ln V")
+            d8 += per * (cfg.head_dim == 8)
+            cfg = dataclasses.replace(
+                cfg, compute_dtype=torch.float32,
+                capacity_factor=parity_capacity(cfg))
+            params = init_params(cfg, g)
+            long, short, _, tokens = lm_inputs(torch, params, cfg, g, B, S,
+                                               S + n_dec)
+            before = route_counts(fa)
+            h_k, _ = forward(params, cfg, **long)
+            h_x, _ = forward(params, cfg, **long, attn_impl="xla")
+            moved = {r: n - before[r] for r, n in route_counts(fa).items()}
+            e = float((h_k - h_x).abs().max() / h_x.abs().max())
+            err, top = serve_parity(torch, params, cfg, short, tokens, S,
+                                    n_dec, h_k, torch.float32)
+            check(moved == {r: per * (r == "fma") for r in moved}
+                  and e <= 1e-4 and err <= 2e-4 * top,
+                  f"lm smoke {arch} f32: K4 routes {moved}; vs chunked "
+                  f"{e:.2e} <= 1e-4; prefill + {n_dec} decode steps vs "
+                  f"forward {err:.3e} <= 2e-4 x {top:.3f}")
+        del params, h, h_k, h_x, long, short
+    rt["launches"]["K4_flash_attention_d8"] = d8
+    cfg = configs.get_smoke("arctic-480b")
+    time_k4(torch, rt, reps, "K4_flash_attention_d8", B, cfg.num_heads,
+            cfg.kv_heads_eff, S, cfg.head_dim, True, plain_reps=reps)
+    free_device_memory(torch)
 
 
 def wkv_work(B, H, T, hd, L):
@@ -3571,13 +4036,11 @@ def wkv_work(B, H, T, hd, L):
     return flops, 3 * n * 2 + 2 * n * 4 + H * hd * 4
 
 
-def phase_wkv_timing(torch, rt, reps: int, sh, smoke: bool):
-    import repro_torch.configs as configs
+def phase_wkv_timing(torch, rt, reps: int, arch, sh, smoke: bool):
     from repro_torch.kernels.wkv import ops as wkv_ops
     from repro_torch.models.rwkv6 import _wkv_chunked_matmul
 
-    arch = "rwkv6-1.6b"
-    cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
+    cfg = lm_config(arch, sh, smoke)
     B, T = sh["batch"], sh["seq"]
     hd, L = cfg.rwkv_head_dim, cfg.wkv_chunk
     H = cfg.d_model // hd
@@ -3620,26 +4083,52 @@ def phase_wkv_timing(torch, rt, reps: int, sh, smoke: bool):
           f"{f_ms:.3f} ms")
 
 
-# arch -> its kernel, timing phase, whether its bf16 agreement is held to
-# the nudged-input control (phase_lm) and its shapes: batch x seq is the
-# forward and loss shape, serve = (batch, prompt length, generated tokens)
+# arch -> its kernel, the record of its kernel's launches, its timing
+# phase, the share of inputs its nudged-input control moves if its bf16
+# agreement is held to that control (phase_lm), whether bf16 serving is compared with forward, the MoE
+# capacity factor of its f32 serving check, and its shapes: batch x seq is
+# the forward and loss shape, decode the decode steps checked, f32_layers
+# the depth of the f32 run, serve = (batch, prompt length, generated
+# tokens), layers a cut of depth
+FULL = dict(batch=2, seq=4096, decode=4, f32_layers=4, serve=(8, 2048, 64))
+# --lm-smoke: the smoke configs at toy shapes (a rehearsal)
+SMOKE = dict(batch=2, seq=256, decode=4, f32_layers=2, serve=(2, 64, 8))
 LM = {
     # qwen3-8b (hf:Qwen/Qwen3-8B) at full width and depth
     "qwen3-8b": dict(
         kernel="K4_flash_attention", timing=phase_attn_timing,
-        bf16_control=False,
-        shapes={"full": dict(batch=2, seq=4096, decode=4, f32_layers=4,
-                             serve=(8, 2048, 64)),
-                # --lm-smoke: the smoke config at toy shapes (a rehearsal)
-                "smoke": dict(batch=2, seq=256, decode=4, f32_layers=2,
-                              serve=(2, 64, 8))}),
+        bf16_control=False, shapes={"full": FULL, "smoke": SMOKE}),
     # rwkv6-1.6b (arXiv:2404.05892) at full width and depth
     "rwkv6-1.6b": dict(
-        kernel="K5_wkv", timing=phase_wkv_timing, bf16_control=True,
-        shapes={"full": dict(batch=8, seq=4096, decode=4, f32_layers=4,
-                             serve=(8, 2048, 64)),
-                "smoke": dict(batch=2, seq=256, decode=4, f32_layers=2,
-                              serve=(2, 64, 8))}),
+        kernel="K5_wkv", timing=phase_wkv_timing, bf16_control=1e-3,
+        shapes={"full": dict(FULL, batch=8), "smoke": SMOKE}),
+    # olmoe-1b-7b (arXiv:2409.02060) at full width and depth: 16 layers of
+    # 64 experts, top-8
+    "olmoe-1b-7b": dict(
+        kernel="K4_flash_attention", record="K4_flash_attention_olmoe",
+        timing=phase_moe_timing, bf16_control=1e-3,
+        shapes={"full": dict(FULL, f32_layers=2), "smoke": SMOKE}),
+    # recurrentgemma-9b (arXiv:2402.19427) at full width and depth: 26 rec
+    # + 12 attn_local layers (window 2048); K4 is not on its path
+    "recurrentgemma-9b": dict(
+        kernel="K4_flash_attention",
+        record="K4_flash_attention_recurrentgemma",
+        timing=phase_scan_timing, bf16_control=False,
+        shapes={"full": dict(FULL, f32_layers=3),
+                "smoke": dict(SMOKE, f32_layers=3, serve=(2, 16, 8))}),
+    # seamless-m4t-large-v2 (arXiv:2308.11596) at full width and depth: 24
+    # encoder + 24 decoder layers, stub frames
+    "seamless-m4t-large-v2": dict(
+        kernel="K4_flash_attention", record="K4_flash_attention_seamless",
+        timing=phase_k4_timing, bf16_control=False,
+        shapes={"full": FULL, "smoke": SMOKE}),
+    # qwen2-vl-72b (arXiv:2409.12191) at full width, 4 of its 80 layers (80
+    # do not fit one card even in bf16), stub patch embeddings
+    "qwen2-vl-72b": dict(
+        kernel="K4_flash_attention", record="K4_flash_attention_qwen2_vl",
+        timing=phase_k4_timing, bf16_control=False,
+        shapes={"full": dict(FULL, layers=4, f32_layers=2),
+                "smoke": SMOKE}),
 }
 
 
@@ -3700,9 +4189,16 @@ def main(argv=None):
     phase_cluster(torch, rt, cluster)
     for arch, spec in LM.items():
         sh = spec["shapes"]["smoke" if args.lm_smoke else "full"]
+        t0 = time.perf_counter()
         phase_lm(torch, rt, arch, sh, args.lm_smoke)
-        phase_serve(torch, arch, sh, args.lm_smoke)
-        spec["timing"](torch, rt, REPS, sh, args.lm_smoke)
+        phase_serve(torch, rt, arch, sh, args.lm_smoke)
+        spec["timing"](torch, rt, REPS, arch, sh, args.lm_smoke)
+        print(f"lm phase {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    t0 = time.perf_counter()
+    phase_lm_smoke_configs(torch, rt, REPS)
+    print(f"lm phase smoke configs: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": rt["records"]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

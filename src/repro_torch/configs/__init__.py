@@ -2,9 +2,8 @@
 ``get_smoke(name)`` -> reduced same-family config for CPU smoke tests;
 port of ``repro/configs/__init__.py``.
 
-Only the architectures in ``PORTED`` have a configuration module here; the
-others are known names whose families the port does not run yet and raise
-(ROADMAP section 1, item 11).
+Every architecture of the reference has its configuration module here,
+field for field; an unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -22,7 +21,6 @@ ARCH_IDS = (
     "qwen2_vl_72b",
     "recurrentgemma_9b",
 )
-PORTED = ("qwen3_8b", "rwkv6_1p6b")
 
 # external ids (with dashes) -> module names
 ALIASES = {i.replace("_", "-").replace("-1p6b", "-1.6b"): i for i in ARCH_IDS}
@@ -32,10 +30,6 @@ def _module(name: str):
     key = name.replace("-", "_").replace("1.6b", "1p6b").replace(".", "p")
     if key not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet (ROADMAP "
-            f"section 1, item 11); ported: {list(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

@@ -8,7 +8,7 @@
 //
 // Replaces repro/kernels/flash_attn/flash_attn.py::flash_attention_pallas
 // (`_flash_kernel`), with flash_attn_sm90.cu: this is K4's FP32-FMA route,
-// taken by f32 inputs at every head dim and by bf16 at head dim 16
+// taken by f32 inputs at every head dim and by bf16 at head dims 8 and 16
 // (kernels/flash_attn/ops.py::route). bf16 at head dims 64 and 128, every
 // bf16 call of qwen3-8b, goes to the tensor-core kernel instead. f32 stays
 // here because TF32 would miss the f32 tolerance.
@@ -33,7 +33,8 @@
 //     share a row, so every lane holds its rows' m and l;
 //   * P = exp(S - m) goes to shared memory over the K tile (dead by then)
 //     and each thread accumulates P V into its rows x (D / 16) columns of
-//     the output in registers;
+//     the output in registers (at D 8, the smoke configs' head dim, lanes
+//     tx < 8 own one column each and the other 8 lanes of a row none);
 //   * the kv head is h / (Hq / Hkv): no repeated K or V exists;
 //   * causal q tiles are launched heaviest first.
 // Every sum runs in a fixed order and nothing is atomic, so two identical
@@ -90,7 +91,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   Strides so, float scale, int causal) {
   constexpr int kQS = D + 1;       // padded row stride of the Q and K tiles
   constexpr int kPS = kTile + 1;   // padded row stride of the P tile
-  constexpr int kDC = D / 16;      // output columns per thread
+  constexpr int kDC = (D + 15) / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                        // 64 x (D + 1)
   float* Ks = Qs + kTile * kQS;            // 64 x (D + 1), then P 64 x 65
@@ -196,6 +197,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i) p[i] = Ps[(r0 + i) * kPS + kk];
 #pragma unroll
       for (int c = 0; c < kDC; ++c) {
+        if (D % 16 && tx + 16 * c >= D) break;   // D 8: lanes past D
         const float vv = Vs[kk * D + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
@@ -212,7 +214,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* orow = obase + (long long)(q0 + r) * so.s;
 #pragma unroll
       for (int c = 0; c < kDC; ++c)
-        store(orow + tx + 16 * c, acc[i][c] / denom);
+        if (D % 16 == 0 || tx + 16 * c < D)
+          store(orow + tx + 16 * c, acc[i][c] / denom);
     }
   }
 }
@@ -241,6 +244,9 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
                        Strides sq, Strides sk, Strides sv, Strides so,
                        float scale, int causal, cudaStream_t stream) {
   switch (D) {
+    case 8:
+      return launch<T, 8>(q, k, v, o, B, Hq, Hkv, Sq, Skv, sq, sk, sv, so,
+                          scale, causal, stream);
     case 16:
       return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, sq, sk, sv, so,
                            scale, causal, stream);
@@ -257,7 +263,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 float32 (D 16, 64, 128), 1 bfloat16 (D 16). Strides in
+// dtype: 0 float32 (D 8, 16, 64, 128), 1 bfloat16 (D 8, 16). Strides in
 // elements, (batch, head, seq) for each of q, k, v, o. Returns
 // cudaGetLastError() after the launch.
 extern "C" int repro_flash_attn(
@@ -275,8 +281,11 @@ extern "C" int repro_flash_attn(
   if (dtype == 0)
     return dispatch_d<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Skv, sq, sk, sv,
                              so, scale, causal, s);
-  // bf16 comes here at head dim 16 only: at 64 and 128 it takes the
-  // tensor-core kernel (flash_attn_sm90.cu)
+  // bf16 comes here at head dims 8 and 16 only: at 64 and 128 it takes
+  // the tensor-core kernel (flash_attn_sm90.cu)
+  if (dtype == 1 && D == 8)
+    return launch<__nv_bfloat16, 8>(q, k, v, o, B, Hq, Hkv, Sq, Skv, sq, sk,
+                                    sv, so, scale, causal, s);
   if (dtype == 1 && D == 16)
     return launch<__nv_bfloat16, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, sq, sk,
                                      sv, so, scale, causal, s);

@@ -12,7 +12,8 @@ picked by :func:`route`, by dtype and head dim alone:
   SDPA do; ``flash_attention_plain(p_dtype=torch.bfloat16)`` repeats that);
   it also needs strides that are multiples of 8 elements and 16-byte
   aligned addresses (TMA's rule), and raises otherwise;
-* f32 at any supported head dim, and bf16 at head dim 16 -> ``"fma"``,
+* f32 at any supported head dim, and bf16 at head dims 8 and 16 ->
+  ``"fma"``,
   ``csrc/flash_attn.cu``: FP32 FMA, P kept in f32 (TF32 would miss the f32
   tolerance).
 
@@ -37,7 +38,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 TILE = 64                       # q and kv tile rows in flash_attn.cu
-HEAD_DIMS = (16, 64, 128)       # head dims the kernels are built for
+HEAD_DIMS = (8, 16, 64, 128)    # head dims the kernels are built for
 TC_HEAD_DIMS = (64, 128)        # head dims of the tensor-core kernel
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -4,14 +4,17 @@
 ``python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu
      --batch 2 --prompt-len 16 --gen 4``
 
+Every architecture of ``repro_torch.configs`` serves through it.
 ``--device`` defaults to ``cuda`` and raises without a GPU. Weights and
 prompt tokens are random, drawn from ``--seed`` by a ``torch.Generator``
-on the device. Times are host-clock seconds around work that ends in a
-device synchronize.
+on the device; an encoder-decoder's stub frame embeddings too ((B, S, d)
+x 0.02, as in the reference). Times are host-clock seconds around work
+that ends in a device synchronize.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -37,6 +40,9 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many decoder layers (a "
+                    "config that does not fit one card at full depth)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
@@ -44,18 +50,25 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = configs_lib.get_smoke(args.arch) if args.smoke \
         else configs_lib.get(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     gen_rng = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen_rng)
     B, S = args.batch, args.prompt_len
     s_max = S + args.gen
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen_rng,
                            device=dev)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["enc_embeds"] = torch.randn((B, S, cfg.d_model), generator=gen_rng,
+                                       device=dev) * 0.02
 
     step = make_serve_step(cfg)
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, caches = prefill(params, cfg, tokens=tokens, s_max=s_max)
+        logits, caches = prefill(params, cfg, tokens=tokens, s_max=s_max,
+                                 **kw)
         out = [torch.argmax(logits, -1)]
         _sync(dev)
         t_prefill = time.perf_counter() - t0

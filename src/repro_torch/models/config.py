@@ -9,8 +9,7 @@ Families:
   encdec  — encoder-decoder backbone (seamless-m4t-large-v2; audio stub)
 The vlm entry (qwen2-vl-72b) is family=dense + mrope + vision stub.
 
-The port runs the dense and rwkv6 families so far (ROADMAP section 1,
-item 11).
+The port runs every family on one card.
 ``remat``, ``scan_layers``, ``unroll_inner``, ``sp_collectives``, ``fsdp``
 and ``parallelism`` are compile-time or mesh knobs of the JAX package. They
 are kept so that configurations carry over field for field, and they do

@@ -175,6 +175,25 @@ def attention(params, cfg: ModelConfig, x: Tensor, positions: Tensor, *,
     return o @ params["wo"].to(cfg.compute_dtype)
 
 
+def attend_cache(cfg: ModelConfig, q: Tensor, cache_k: Tensor,
+                 cache_v: Tensor, valid: Optional[Tensor] = None) -> Tensor:
+    """One query token against a cache in f32: q (B, 1, Hq, hd), cache
+    (B, S, Hkv_eff, hd), valid (S,) bool or None (every slot). -> (B, 1,
+    Hq * hd) in the compute dtype. The decode steps of self, ring-buffer
+    and cross attention all attend through it."""
+    B, hd = q.shape[0], cfg.head_dim
+    Hkv = cfg.kv_heads_eff
+    rep = cfg.num_heads // Hkv
+    qg = q.reshape(B, 1, Hkv, rep, hd).float()
+    s = torch.einsum("bqhrd,bshd->bhrqs", qg, cache_k.float())
+    s = s / (1.0 * hd) ** 0.5
+    if valid is not None:
+        s = torch.where(valid[None, None, None, None, :], s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhrqs,bshd->bqhrd", p, cache_v.float())
+    return o.reshape(B, 1, cfg.num_heads * hd).to(cfg.compute_dtype)
+
+
 def attention_decode(params, cfg: ModelConfig, x: Tensor, cache_k: Tensor,
                      cache_v: Tensor, pos, *, window: int = 0):
     """One decode step. x: (B, 1, d); cache_k/v: (B, Smax, Hkv_eff, hd);
@@ -186,7 +205,6 @@ def attention_decode(params, cfg: ModelConfig, x: Tensor, cache_k: Tensor,
     returned tensors are the ones passed in.
     """
     B = x.shape[0]
-    hd = cfg.head_dim
     pos = int(pos)
     dev = x.device
     if cfg.mrope:
@@ -196,19 +214,9 @@ def attention_decode(params, cfg: ModelConfig, x: Tensor, cache_k: Tensor,
     q, k_new, v_new = _project_qkv(params, cfg, x, positions)
     cache_k[:, pos:pos + 1] = k_new.to(cache_k.dtype)
     cache_v[:, pos:pos + 1] = v_new.to(cache_v.dtype)
-    Smax = cache_k.shape[1]
-    Hkv = cfg.kv_heads_eff
-    rep = cfg.num_heads // Hkv
-    qg = q.reshape(B, 1, Hkv, rep, hd).float()
-    kf = cache_k.float()
-    vf = cache_v.float()
-    s = torch.einsum("bqhrd,bshd->bhrqs", qg, kf) / (1.0 * hd) ** 0.5
-    idx = torch.arange(Smax, device=dev)
-    mask = idx[None, :] <= pos
+    idx = torch.arange(cache_k.shape[1], device=dev)
+    valid = idx <= pos
     if window:
-        mask = mask & (idx[None, :] > pos - window)
-    s = torch.where(mask[None, None, None], s, -torch.inf)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhrqs,bshd->bqhrd", p, vf)
-    o = o.reshape(B, 1, cfg.num_heads * hd).to(cfg.compute_dtype)
+        valid = valid & (idx > pos - window)
+    o = attend_cache(cfg, q, cache_k, cache_v, valid)
     return o @ params["wo"].to(cfg.compute_dtype), cache_k, cache_v

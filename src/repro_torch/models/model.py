@@ -1,16 +1,18 @@
-"""Unified LM, dense and rwkv6 subset: init / forward / loss; port of
+"""Unified LM covering every family: init / forward / loss; port of
 ``repro/models/model.py``.
 
 Param tree layout (the reference's pytree, one to one; every segment of the
 stack carries a leading L axis):
-  {embed, blocks, final_norm, lm_head}
+  {embed, blocks, final_norm, lm_head [, enc_blocks, enc_norm]}
 ``blocks`` is a list with one dict per homogeneous segment of layer kinds.
 
-The kinds ``"attn"`` (the dense family) and ``"rwkv"`` (rwkv6) are
-ported; the others raise (ROADMAP section 1, item 11). The reference's
-``shard(...)`` annotations and its scan / remat are mesh and compile-time
-devices and have no counterpart on one card: ``_run_stack`` is a Python
-loop over the stacked layers.
+Layer kinds: ``"attn"`` (dense), ``"moe"``, ``"rwkv"``, ``"rec"`` and
+``"attn_local"`` (griffin) and ``"cross"`` (the encoder-decoder's decoder
+layer); the encoder is a stack of ``"attn"`` layers run without the causal
+mask. The reference's ``shard(...)`` annotations, its ``gather_in`` /
+``scatter_out`` and its scan / remat are mesh and compile-time devices and
+have no counterpart on one card: ``_run_stack`` is a Python loop over the
+stacked layers.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.models import griffin as griffin_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -30,13 +34,6 @@ from repro_torch.models.layers import (
 )
 
 Tensor = torch.Tensor
-PORTED_KINDS = ("attn", "rwkv")
-
-
-def _unported(what):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP section 1, "
-        f"item 11); ported layer kinds: {list(PORTED_KINDS)}")
 
 
 def tree_map(fn, tree):
@@ -65,29 +62,73 @@ def tree_map2(fn, a, b):
 # ---------------------------------------------------------------------------
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str):
-    if kind not in PORTED_KINDS:
-        raise _unported(f"layer kind {kind!r}")
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=cfg.param_dtype,
                                 device=gen.device)
-    if kind == "rwkv":
-        return {"ln1": zeros(), "ln2": zeros(),
-                "tmix": rwkv_lib.init_time_mix(gen, cfg),
-                "cmix": rwkv_lib.init_channel_mix(gen, cfg)}
-    return {"ln1": zeros(), "ln2": zeros(),
-            "attn": init_attention(gen, cfg),
-            "mlp": init_mlp(gen, d, cfg.d_ff, cfg.param_dtype)}
+    p: Dict[str, Any] = {"ln1": zeros(), "ln2": zeros()}
+    if kind in ("attn", "attn_local"):
+        p["attn"] = init_attention(gen, cfg)
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.param_dtype)
+    elif kind == "moe":
+        p["attn"] = init_attention(gen, cfg)
+        p["moe"] = moe_lib.init_moe(gen, cfg)
+    elif kind == "rwkv":
+        p["tmix"] = rwkv_lib.init_time_mix(gen, cfg)
+        p["cmix"] = rwkv_lib.init_channel_mix(gen, cfg)
+    elif kind == "rec":
+        p["rec"] = griffin_lib.init_recurrent_block(gen, cfg)
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.param_dtype)
+    elif kind == "cross":  # encoder-decoder decoder layer
+        p["attn"] = init_attention(gen, cfg)
+        p["ln_x"] = zeros()
+        p["xattn"] = init_attention(gen, cfg)
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.param_dtype)
+    else:
+        raise ValueError(kind)
+    return p
+
+
+def cross_kv(xa, cfg: ModelConfig, enc_out: Tensor):
+    """Cross-attention keys and values: the encoder output through the
+    layer's own ``wk`` / ``wv``, no RoPE. (B, Se, Hkv_eff, hd) each."""
+    cdt = cfg.compute_dtype
+    B, Se, _ = enc_out.shape
+    shape = (B, Se, cfg.kv_heads_eff, cfg.head_dim)
+    return ((enc_out @ xa["wk"].to(cdt)).reshape(shape),
+            (enc_out @ xa["wv"].to(cdt)).reshape(shape))
 
 
 def _apply_block(params, cfg: ModelConfig, kind: str, x: Tensor,
                  positions: Tensor, *, causal: bool = True,
+                 enc_out: Optional[Tensor] = None,
                  attn_impl: str = "cuda",
                  wkv_impl: str = "cuda") -> Tuple[Tensor, Tensor]:
     """Returns (x_out, aux_loss)."""
-    if kind not in PORTED_KINDS:
-        raise _unported(f"layer kind {kind!r}")
     eps = cfg.norm_eps
+    cdt = cfg.compute_dtype
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in ("attn", "moe", "attn_local", "cross"):
+        # attn_local has a window, which K4 does not take: the chunked
+        # path, as in the reference
+        window = cfg.window_size if kind == "attn_local" else 0
+        x = x + attention(params["attn"], cfg,
+                          rmsnorm(x, params["ln1"], eps), positions,
+                          causal=causal, window=window, attn_impl=attn_impl)
+        if kind == "cross":
+            # cross-attention: kv from encoder output (own projections).
+            xa = params["xattn"]
+            x = x + attention(xa, cfg, rmsnorm(x, params["ln_x"], eps),
+                              positions, causal=False,
+                              kv_override=cross_kv(xa, cfg, enc_out),
+                              attn_impl=attn_impl)
+        ff_in = rmsnorm(x, params["ln2"], eps)
+        if kind == "moe":
+            # moe_impl "a2a" (olmoe, arctic): the reference's moe_ffn_a2a
+            # takes moe_ffn when there is no mesh, which one card is
+            h, aux = moe_lib.moe_ffn(params["moe"], cfg, ff_in)
+        else:
+            h = mlp(params["mlp"], ff_in, cdt)
+        return x + h, aux
     if kind == "rwkv":
         h, _ = rwkv_lib.time_mix(params["tmix"], cfg,
                                  rmsnorm(x, params["ln1"], eps),
@@ -96,11 +137,13 @@ def _apply_block(params, cfg: ModelConfig, kind: str, x: Tensor,
         h, _ = rwkv_lib.channel_mix(params["cmix"], cfg,
                                     rmsnorm(x, params["ln2"], eps))
         return x + h, aux
-    h = attention(params["attn"], cfg, rmsnorm(x, params["ln1"], eps),
-                  positions, causal=causal, attn_impl=attn_impl)
-    x = x + h
-    h = mlp(params["mlp"], rmsnorm(x, params["ln2"], eps), cfg.compute_dtype)
-    return x + h, aux
+    if kind == "rec":
+        h, _ = griffin_lib.recurrent_block(params["rec"], cfg,
+                                           rmsnorm(x, params["ln1"], eps))
+        x = x + h
+        h = mlp(params["mlp"], rmsnorm(x, params["ln2"], eps), cdt)
+        return x + h, aux
+    raise ValueError(kind)
 
 
 def layer_kinds(cfg: ModelConfig, role: str = "decoder") -> Tuple[str, ...]:
@@ -156,8 +199,6 @@ def _stack_init(gen: torch.Generator, cfg, kinds: Tuple[str, ...]):
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
     """Random parameters on ``gen.device`` (the caller picks the device by
     the generator it passes; a different stream from the reference's)."""
-    if cfg.encoder_layers:
-        raise _unported("the encoder-decoder family")
     d = cfg.d_model
     params: Dict[str, Any] = {
         "embed": dense_init(gen, (cfg.vocab_size, d), cfg.param_dtype,
@@ -169,23 +210,29 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab_size),
                                        cfg.param_dtype)
     params["blocks"] = _stack_init(gen, cfg, layer_kinds(cfg))
+    if cfg.encoder_layers:
+        params["enc_blocks"] = _stack_init(gen, cfg,
+                                           layer_kinds(cfg, "encoder"))
+        params["enc_norm"] = torch.zeros((d,), dtype=cfg.param_dtype,
+                                         device=gen.device)
     return params
 
 
 # ---------------------------------------------------------------------------
-# Forward (train / prefill)
+# Forward (train / prefill / encoder)
 # ---------------------------------------------------------------------------
 
 def _run_stack(segments, seg_meta, cfg: ModelConfig, x: Tensor,
-               positions: Tensor, *, causal: bool, attn_impl: str = "cuda",
-               wkv_impl: str = "cuda"):
+               positions: Tensor, *, causal: bool, enc_out=None,
+               attn_impl: str = "cuda", wkv_impl: str = "cuda"):
     """Each homogeneous segment, layer by layer."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, count), stacked in zip(seg_meta, segments):
         for li in range(count):
             lp = tree_map(lambda a: a[li], stacked)
             x, a = _apply_block(lp, cfg, kind, x, positions, causal=causal,
-                                attn_impl=attn_impl, wkv_impl=wkv_impl)
+                                enc_out=enc_out, attn_impl=attn_impl,
+                                wkv_impl=wkv_impl)
             aux_total = aux_total + a
     return x, aux_total
 
@@ -195,6 +242,25 @@ def embed_tokens(params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
     whole table and then gathers; gathering first gives the same values
     without a (V, d) temporary."""
     return params["embed"][tokens].to(cfg.compute_dtype)
+
+
+def encode(params, cfg: ModelConfig, enc_embeds: Optional[Tensor], *,
+           attn_impl: str = "cuda") -> Optional[Tensor]:
+    """The encoder's output (B, Se, d), or None for a decoder-only
+    config: the ``"attn"`` stack without the causal mask, then
+    ``enc_norm``."""
+    if not cfg.encoder_layers:
+        return None
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                         "enc_embeds")
+    Be, Se, _ = enc_embeds.shape
+    enc_pos = torch.arange(Se, device=enc_embeds.device).expand(Be, Se)
+    enc_x, _ = _run_stack(params["enc_blocks"],
+                          segment_structure(layer_kinds(cfg, "encoder")),
+                          cfg, enc_embeds.to(cfg.compute_dtype), enc_pos,
+                          causal=False, attn_impl=attn_impl)
+    return rmsnorm(enc_x, params["enc_norm"], cfg.norm_eps)
 
 
 def forward(params, cfg: ModelConfig, *, tokens: Optional[Tensor] = None,
@@ -211,18 +277,20 @@ def forward(params, cfg: ModelConfig, *, tokens: Optional[Tensor] = None,
     does not lower on its CPU backend. ``wkv_impl`` chooses the same way
     for the rwkv layers: ``"cuda"`` the WKV kernel K5, ``"xla"`` the
     reference's chunked form (``cfg.wkv_impl``).
+
+    encdec: enc_embeds (stub audio frames) run through the encoder; the
+    decoder cross-attends to the encoder output.
     """
-    if cfg.encoder_layers or enc_embeds is not None:
-        raise _unported("the encoder-decoder family")
     if embeds is None:
         embeds = embed_tokens(params, cfg, tokens)
     B, S, d = embeds.shape
     if positions is None:
         positions = torch.arange(S, device=embeds.device).expand(B, S)
+    enc_out = encode(params, cfg, enc_embeds, attn_impl=attn_impl)
     x, aux = _run_stack(
         params["blocks"], segment_structure(layer_kinds(cfg)),
-        cfg, embeds, positions, causal=True, attn_impl=attn_impl,
-        wkv_impl=wkv_impl,
+        cfg, embeds, positions, causal=True, enc_out=enc_out,
+        attn_impl=attn_impl, wkv_impl=wkv_impl,
     )
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 

@@ -27,6 +27,9 @@ CASES = [
     (1, 8, 1, 512, 512, 128, "float32", True),
     (2, 4, 4, 256, 256, 64, "bfloat16", True),
     (1, 2, 2, 256, 512, 64, "float32", False),
+    # head dim 8: the arctic-480b and command-r-35b smoke configs
+    (2, 8, 2, 256, 256, 8, "bfloat16", True),
+    (1, 4, 4, 256, 256, 8, "float32", False),
 ]
 
 
@@ -173,10 +176,11 @@ def test_bf16_p_plain_is_within_one_p_rounding_of_f32_p(Sq, Skv, D, causal):
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
     (torch.bfloat16, 16, "fma"), (torch.float32, 128, "fma"),
-    (torch.float32, 64, "fma"), (torch.float32, 16, "fma")])
+    (torch.float32, 64, "fma"), (torch.float32, 16, "fma"),
+    (torch.bfloat16, 8, "fma"), (torch.float32, 8, "fma")])
 def test_route_rule(dtype, D, want):
     """bf16 at head dims 64 and 128 takes the tensor-core kernel; f32 at
-    any head dim and bf16 at head dim 16 the FP32-FMA kernel."""
+    any head dim and bf16 at head dims 8 and 16 the FP32-FMA kernel."""
     assert tops.route(dtype, D) == want
 
 
@@ -209,6 +213,7 @@ def test_kernel_matches_plain_on_card():
     for (B, Hq, Hkv, Sq, Skv, D, causal) in (
             (2, 4, 2, 256, 256, 64, True), (1, 8, 2, 1000, 1000, 128, True),
             (1, 4, 1, 100, 300, 16, True), (2, 2, 2, 130, 70, 64, False),
+            (2, 8, 2, 77, 77, 8, True), (1, 8, 8, 70, 130, 8, False),
             # tensor-core shapes: Sq < Skv, ragged Skv, GQA group 2, one
             # row, Sq > Skv, a tile and a row
             (2, 4, 1, 300, 1000, 128, True), (1, 4, 2, 200, 333, 64, False),

@@ -52,7 +52,13 @@ def test_port_imports_no_jax_and_no_repro():
                  "cluster.membership", "cluster.reduction", "cluster.worker",
                  "cluster.coordinator", "exec.cluster", "service.batching",
                  "service.server", "service.admission", "service.frontend",
-                 "launch.serve_fit"):
+                 "launch.serve_fit", "models.moe", "models.griffin",
+                 "models.model", "models.decode", "launch.serve",
+                 "configs.arctic_480b", "configs.command_r_35b",
+                 "configs.olmoe_1b_7b", "configs.phi3_medium_14b",
+                 "configs.qwen2_vl_72b", "configs.qwen3_14b",
+                 "configs.recurrentgemma_9b",
+                 "configs.seamless_m4t_large_v2"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"

@@ -1,13 +1,14 @@
-"""Port parity: the dense LM layers, ``forward`` and ``loss_fn`` against the
-JAX package on the same weights (carried by ``convert.lm_params``) and the
-same numpy inputs.
+"""Port parity: the LM configs, layers, ``forward`` and ``loss_fn`` against
+the JAX package on the same weights (carried by ``convert.lm_params``) and
+the same numpy inputs.
 
-Two configurations: an f32-compute dense ``qk_norm`` config (the dense row
-of ``tests/test_decode_parity.py``, two layers), where the bound is tight
-(2e-5 on O(1) activations: summation order only), and the qwen3-8b smoke
-config, whose bf16 compute rounds at other places in torch's CPU matmul
-than in XLA's, with a bf16 bound (6e-2 on unit-RMS hidden states, a few
-bf16 roundings of O(1) values; 1e-2 relative on the loss).
+Every architecture's config field for field; the layers on an f32-compute
+dense ``qk_norm`` config (the dense row of ``tests/test_decode_parity.py``,
+two layers), where the bound is tight (2e-5 on O(1) activations: summation
+order only); ``forward`` / ``loss_fn`` on every smoke config in f32
+compute (the same tight bound) and as published in bf16, which torch's CPU
+matmul rounds at other places than XLA's (6e-2 on unit-RMS hidden states,
+a few bf16 roundings of O(1) values; 1e-2 relative on the loss).
 """
 import dataclasses
 import functools
@@ -101,21 +102,83 @@ def test_param_count_of_every_family_matches(family, extra):
     assert t.active_param_count() == j.active_param_count()
 
 
-def test_unported_archs_and_kinds_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tconfigs.get("recurrentgemma-9b")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tconfigs.get_smoke("olmoe-1b-7b")
-    with pytest.raises(KeyError):
-        tconfigs.get("gpt-2")
-    cfg = to_torch_config(JConfig(**dict(DENSE_F32, family="moe",
-                                         num_experts=4)))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tm.init_params(cfg, torch.Generator().manual_seed(0))
-    grif = to_torch_config(JConfig(**dict(DENSE_F32, family="griffin",
-                                          pattern=("rec", "attn"))))
-    with pytest.raises(NotImplementedError, match="layer kind 'rec'"):
-        tm.init_params(grif, torch.Generator().manual_seed(0))
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_config_matches_reference(arch):
+    """Every architecture: ``get`` and ``get_smoke`` equal the reference's
+    configs field for field (dtypes mapped), dashed names included."""
+    name = {v: k for k, v in jconfigs.ALIASES.items()}[arch]
+    assert tconfigs.ALIASES == jconfigs.ALIASES
+    for getter in ("get", "get_smoke"):
+        for key in (arch, name):
+            j = getattr(jconfigs, getter)(key)
+            t = getattr(tconfigs, getter)(key)
+            assert to_torch_config(j) == t, (getter, key)
+            assert t.param_count() == j.param_count()
+            assert t.active_param_count() == j.active_param_count()
+
+
+def test_unknown_arch_raises_key_error():
+    for getter in (tconfigs.get, tconfigs.get_smoke):
+        with pytest.raises(KeyError, match="unknown arch"):
+            getter("gpt-2")
+    with pytest.raises(ValueError):
+        tm.layer_kinds(dataclasses.replace(tconfigs.get_smoke("qwen3-8b"),
+                                           family="mamba"))
+
+
+def test_full_configs_match_nameplate_param_counts():
+    """tests/test_models_smoke.py:82-98 on the port's configs."""
+    expect = {
+        "arctic-480b": (430e9, 530e9),
+        "olmoe-1b-7b": (6e9, 8e9),
+        "rwkv6-1.6b": (1.3e9, 1.9e9),
+        "qwen3-14b": (13e9, 16e9),
+        "command-r-35b": (30e9, 38e9),
+        "phi3-medium-14b": (13e9, 16e9),
+        "qwen3-8b": (7e9, 9e9),
+        "seamless-m4t-large-v2": (1.5e9, 2.6e9),
+        "qwen2-vl-72b": (68e9, 78e9),
+        "recurrentgemma-9b": (8.5e9, 11e9),
+    }
+    for arch, (lo, hi) in expect.items():
+        n = tconfigs.get(arch).param_count()
+        assert lo <= n <= hi, (arch, n)
+
+
+def test_moe_active_params():
+    """tests/test_models_smoke.py:101-105 on the port's configs."""
+    arctic = tconfigs.get("arctic-480b")
+    assert arctic.active_param_count() < 0.05 * arctic.param_count()
+    olmoe = tconfigs.get("olmoe-1b-7b")
+    assert 0.1 < olmoe.active_param_count() / olmoe.param_count() < 0.3
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_init_params_tree_matches_reference(arch):
+    """The port's own ``init_params`` tree of each smoke config has the
+    reference's keys, segments, shapes and dtypes, and
+    ``convert.lm_params`` carries the reference's tree leaf for leaf."""
+    jcfg = jconfigs.get_smoke(arch)
+    jp, tp = _pair_params(jcfg)
+    own = tm.init_params(to_torch_config(jcfg),
+                         torch.Generator().manual_seed(0))
+    jleaves = jax.tree_util.tree_leaves_with_path(jp)
+    n = 0
+    for path, leaf in jleaves:
+        t, o = tp, own
+        for key in path:
+            k = key.key if hasattr(key, "key") else key.idx
+            t, o = t[k], o[k]
+        assert tuple(t.shape) == leaf.shape == tuple(o.shape), path
+        assert t.dtype == TDTYPE[leaf.dtype] == o.dtype, path
+        n += 1
+    sizes = []
+    tm.tree_map(lambda a: sizes.append(a.numel()), own)
+    assert len(sizes) == n
+    assert sum(sizes) == sum(leaf.size for _, leaf in jleaves)
+    assert len(own["blocks"]) == len(tm.segment_structure(
+        tm.layer_kinds(to_torch_config(jcfg))))
+    assert ("enc_blocks" in own) == bool(jcfg.encoder_layers)
 
 
 def test_lm_params_keeps_tree_shapes_and_dtypes():
@@ -255,6 +318,105 @@ def test_forward_and_loss_match(name):
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=tol_loss)
     np.testing.assert_allclose(float(tmet["ce"]), float(jmet["ce"]),
                                rtol=tol_loss)
+
+
+def _batch(cfg, B, S, seed=1):
+    """Tokens and labels, plus stub frames for an encoder-decoder and
+    three distinct M-RoPE streams (a t x h x w grid of 4 x 2 x 4) for the
+    VLM: the same numpy arrays for both packages."""
+    rng = np.random.default_rng(seed)
+    arrs = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)),
+            "labels": rng.integers(0, cfg.vocab_size, (B, S))}
+    if cfg.encoder_layers:
+        arrs["enc_embeds"] = 0.02 * rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)
+    if cfg.mrope:
+        i = np.arange(S)
+        arrs["positions"] = np.broadcast_to(
+            np.stack([i // 8, i % 8 // 4 + i // 8, i % 4 + i // 8])[:, None],
+            (3, B, S))
+    jb = {k: jnp.asarray(v.astype(np.float32 if v.dtype.kind == "f"
+                                  else np.int32)) for k, v in arrs.items()}
+    tb = {k: torch.from_numpy(np.ascontiguousarray(v)).float()
+          if v.dtype.kind == "f" else torch.from_numpy(
+              np.ascontiguousarray(v)).long() for k, v in arrs.items()}
+    return jb, tb
+
+
+def _smoke(arch, cdt):
+    return dataclasses.replace(jconfigs.get_smoke(arch), compute_dtype=cdt)
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_smoke_forward_and_loss_match_f32(arch):
+    """Every family's smoke config in f32 compute, both attention paths,
+    against the reference: 2e-5 on O(1) hidden states (summation order;
+    MoE routing agrees, so the same experts run), 1e-5 on the loss and
+    the router aux loss."""
+    jcfg = _smoke(arch, jnp.float32)
+    tcfg = to_torch_config(jcfg)
+    jp, tp = _pair_params(jcfg)
+    jb, tb = _batch(jcfg, 2, 32)
+    fw = lambda b: {k: v for k, v in b.items() if k != "labels"}
+    jh, jaux = jax.jit(functools.partial(jm.forward, cfg=jcfg))(jp, **fw(jb))
+    for impl in ("cuda", "xla"):
+        th, taux = tm.forward(tp, tcfg, attn_impl=impl, **fw(tb))
+        assert th.shape == (2, 32, tcfg.d_model)
+        np.testing.assert_allclose(_np(th), _np(jh), atol=2e-5, err_msg=impl)
+        np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5,
+                                   atol=1e-7)
+    assert (float(jaux) > 0) == (jcfg.family == "moe")
+    jloss, _ = jm.loss_fn(jp, jcfg, jb)
+    tloss, tmet = tm.loss_fn(tp, tcfg, tb)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_smoke_forward_and_loss_match_bf16(arch):
+    """The smoke configs as published (bf16 compute) against the
+    reference: 6e-2 on unit-RMS hidden states (a few bf16 roundings that
+    torch's CPU matmul takes at other places than XLA's), 1e-2 relative on
+    the loss. MoE configs are held on the loss and the aux loss only: a
+    bf16 rounding upstream can move a token's k-th router probability past
+    its (k+1)-th and send it to another expert, an O(1) change of that
+    token's output (the f32 test holds their hidden states)."""
+    jcfg = jconfigs.get_smoke(arch)
+    tcfg = to_torch_config(jcfg)
+    jp, tp = _pair_params(jcfg)
+    jb, tb = _batch(jcfg, 2, 32)
+    fw = lambda b: {k: v for k, v in b.items() if k != "labels"}
+    jh, jaux = jax.jit(functools.partial(jm.forward, cfg=jcfg))(jp, **fw(jb))
+    th, taux = tm.forward(tp, tcfg, **fw(tb))
+    assert th.dtype == torch.bfloat16 and bool(torch.isfinite(th).all())
+    if jcfg.family == "moe":
+        np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-2)
+    else:
+        np.testing.assert_allclose(_np(th), _np(jh), atol=6e-2)
+    jloss, _ = jm.loss_fn(jp, jcfg, jb)
+    tloss, _ = tm.loss_fn(tp, tcfg, tb)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-2)
+
+
+def test_encoder_runs_full_attention_through_flash_path():
+    """The encoder and the cross attention (Sq != Skv) take K4's plain
+    version under attn_impl='cuda' on the CPU and agree with the chunked
+    path; a decoder-only config ignores no encoder (none is built)."""
+    jcfg = _smoke("seamless-m4t-large-v2", jnp.float32)
+    tcfg = to_torch_config(jcfg)
+    _, tp = _pair_params(jcfg)
+    rng = np.random.default_rng(5)
+    tok = torch.from_numpy(rng.integers(0, 256, (2, 12))).long()
+    enc = torch.from_numpy(rng.standard_normal((2, 20, 64)).astype(
+        np.float32))
+    out = tm.encode(tp, tcfg, enc)
+    assert out.shape == (2, 20, 64)
+    assert tm.encode(tp, tcfg, enc, attn_impl="xla").shape == out.shape
+    h1, _ = tm.forward(tp, tcfg, tokens=tok, enc_embeds=enc)
+    h2, _ = tm.forward(tp, tcfg, tokens=tok, enc_embeds=enc, attn_impl="xla")
+    np.testing.assert_allclose(h1.numpy(), h2.numpy(), atol=2e-5)
+    with pytest.raises(ValueError, match="enc_embeds"):
+        tm.forward(tp, tcfg, tokens=tok)
+    assert tm.encode({}, to_torch_config(JConfig(**DENSE_F32)), None) is None
 
 
 def test_forward_matches_jax_flash_kernel():
