@@ -201,6 +201,26 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               to the original) and ``launch.serve_fit.main`` at 2^20 x 200
               in process (probes, ``--mu-path``) and with ``--port 0``.
 
+15. train   — LM training (ROADMAP item 11.3), last, once the LM phases'
+              weights are freed. Every arch's smoke config in f32: one
+              ``make_train_step`` step on the card against the same step on
+              the CPU from the same parameters and the token pipeline's
+              batch (loss 1e-5 and grad norm 1e-4 relative, parameters
+              1e-5, except those whose AdamW gradient is within 100 eps of
+              0, held to 2 lr), and again on the card, bit for bit; as
+              published (bf16), 8 steps on a fixed batch, the
+              loss must fall. K4 and K5 raise under grad with an input
+              that requires grad. ``launch.train`` in subprocesses with
+              ``--device cuda``: uninterrupted, and killed at step 12 then
+              resumed (qwen3-8b smoke, 24 steps, checkpoints every 8):
+              final losses within rtol 1e-5, bitwise equality printed.
+              rwkv6-1.6b at full width and depth through
+              ``launch.train.main``, B 8 x T 512, remat full, 12 steps: the
+              median step ms after two, tok/s, the peak device memory, the
+              first and last loss (finite, falling); one more step under
+              ``torch.profiler`` for the card's busy time. The train path
+              runs the chunked attention and WKV forms: no kernel launches.
+
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. The script imports no JAX and nothing of
 the JAX package.
@@ -4132,6 +4152,450 @@ LM = {
 }
 
 
+# phase 15, training: the smoke configs' step on the card against the CPU,
+# the kill-and-resume recipe of tests/test_fault_tolerance.py, and
+# rwkv6-1.6b at full width and depth through launch.train.main. "device"
+# is the launcher's --device in the subprocesses (a CPU rehearsal sets it
+# to "cpu").
+TRAIN = dict(
+    smoke=dict(batch=2, seq=32, steps=8),
+    resume=["--arch", "qwen3-8b", "--smoke", "--steps", "24", "--batch", "2",
+            "--seq", "32", "--ckpt-every", "8", "--lr", "1e-3"],
+    die_at=12,
+    full=dict(arch="rwkv6-1.6b", smoke=False, steps=12, batch=8, seq=512,
+              lr=3e-3),
+    # the CPU rehearsal: the smoke config, whose small batches need a
+    # larger lr than the launcher's default for the loss to fall in 12
+    rehearsal=dict(arch="rwkv6-1.6b", smoke=True, steps=12, batch=8, seq=64,
+                   lr=3e-2),
+    device="cuda",
+    timeout=300,             # seconds per launcher subprocess
+)
+# card against CPU, one f32 step: loss and grad norm relative; the clipped
+# gradient of every parameter (from AdamW's first moment) to atol + rtol
+# |g|, as the CPU tests hold gradients; params absolute, except where
+# AdamW's first update g / (|g| + eps) is ill-conditioned
+# (0 < |g| < 100 eps), held to the update's bound 2 lr, and those at most
+# ill_share of the parameters (the ten smoke configs' share at B 2 x S 32
+# is 4.3e-4 to 1.85e-3: the MoE experts and the clipped rwkv6 lie above
+# the 1e-3 the CPU tests hold four configs to)
+TRAIN_TOL = dict(loss=1e-5, grad_norm=1e-4, grads=(1e-5, 1e-4),
+                 params=1e-5, ill_share=1e-2)
+
+
+def train_batch(torch, cfg, B, S, dev, step=0):
+    """The token pipeline's batch at ``step`` on ``dev``; the VLM's stub
+    frames in the compute type (the pipeline gives bf16)."""
+    from repro_torch.data.pipeline import TokenPipeline, place
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, global_batch=B,
+                         seq_len=S, seed=SEED, frontend=cfg.frontend,
+                         d_model=cfg.d_model, mrope=cfg.mrope)
+    batch = place(pipe.batch_at(step), dev)
+    if "embeds" in batch:
+        batch["embeds"] = batch["embeds"].to(cfg.compute_dtype)
+    return batch
+
+
+def adam_param_diff(torch, p_card, p_cpu, state_card, state_cpu, b1, eps):
+    """(largest |card - CPU| over the parameters whose AdamW gradient is
+    not within 100 eps of 0, the same over those that are (0 if none),
+    how many are, how many parameters there are, and the largest
+    |g_card - g_CPU| / (atol + rtol |g_CPU|) of the clipped gradients,
+    read from the first moments m = (1 - b1) g: at most 1 where they
+    agree to TRAIN_TOL["grads"])."""
+    from repro_torch.models.model import zip_leaves
+    atol, rtol = TRAIN_TOL["grads"]
+    well, ill, n_ill, total, g_err = 0.0, 0.0, 0, 0, 0.0
+    for a, b, m_card, m in zip_leaves(p_card, p_cpu, state_card["m"],
+                                      state_cpu["m"]):
+        total += b.numel()
+        d = (a.cpu() - b).abs()
+        g = m.abs() / (1 - b1)
+        g_err = max(g_err, float(((m_card.cpu() - m).abs() / (1 - b1)
+                                  / (atol + rtol * g)).max()))
+        flat = (g < 100 * eps) & (g > 0)
+        if bool((~flat).any()):
+            well = max(well, float(d[~flat].max()))
+        if bool(flat.any()):
+            ill = max(ill, float(d[flat].max()))
+            n_ill += int(flat.sum())
+    return well, ill, n_ill, total, g_err
+
+
+def phase_train_smoke(torch, B, S, steps):
+    """Every arch's smoke config. In f32 compute: one train step on the card
+    against the same step of the port on the CPU, from the same parameters
+    and batch, then the card's step again from copies of the same inputs,
+    bit for bit (no float atomics on the path; deterministic algorithms
+    are not needed). As published (bf16 compute): ``steps``
+    steps on a fixed batch, the loss must fall (the reference's
+    test_smoke_loss_decreases); the median step time after two."""
+    import repro_torch.configs as configs
+    from repro_torch.models.model import init_params, tree_map, zip_leaves
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.runtime.steps import make_train_step
+    dev = torch.device("cuda")
+    tol = TRAIN_TOL
+    for arch in configs.ALIASES:
+        cfg = dataclasses.replace(configs.get_smoke(arch),
+                                  compute_dtype=torch.float32)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(cfg, g)
+        keep = tree_map(lambda t: t.clone(), params)
+        p_cpu = tree_map(lambda t: t.to("cpu", copy=True), params)
+        batch = train_batch(torch, cfg, B, S, dev)
+        b_cpu = {k: v.to("cpu", copy=True) for k, v in batch.items()}
+        opt = make_optimizer(cfg.optimizer, lr=1e-3, warmup_steps=1,
+                             total_steps=10)
+        step = make_train_step(cfg, opt)
+        _, s_card, m_card = step(params, opt.init(params), batch, 0)
+        _, s_cpu, m_cpu = step(p_cpu, opt.init(p_cpu), b_cpu, 0)
+        e_loss = abs(float(m_card["loss"]) - float(m_cpu["loss"])) \
+            / abs(float(m_cpu["loss"]))
+        e_gn = abs(float(m_card["grad_norm"]) - float(m_cpu["grad_norm"])) \
+            / float(m_cpu["grad_norm"])
+        lr = float(opt.schedule(0))
+        well, ill, n_ill, total, g_err = adam_param_diff(
+            torch, params, p_cpu, s_card, s_cpu, opt.b1, opt.eps)
+        again = tree_map(lambda t: t.clone(), keep)
+        _, _, m_again = step(again, opt.init(again), batch, 0)
+        bitwise = float(m_again["loss"]) == float(m_card["loss"]) and all(
+            torch.equal(a, b) for a, b in zip_leaves(again, params))
+        check(e_loss <= tol["loss"] and e_gn <= tol["grad_norm"]
+              and well <= tol["params"] and ill <= 2 * lr
+              and n_ill <= tol["ill_share"] * total and g_err <= 1
+              and bitwise
+              and all(math.isfinite(float(v)) for v in m_card.values()),
+              f"train {arch} f32, one step card vs CPU: loss "
+              f"{float(m_card['loss']):.5f} rel {e_loss:.2e} <= "
+              f"{tol['loss']:g}, grad norm {float(m_card['grad_norm']):.4f}"
+              f" rel {e_gn:.2e} <= {tol['grad_norm']:g}, params max "
+              f"{well:.2e} <= {tol['params']:g} ({n_ill} of {total} <= "
+              f"{tol['ill_share']:g} of them with 0 < |g| < 100 eps: "
+              f"{ill:.2e} <= 2 lr = {2 * lr:.1e}); clipped gradients "
+              f"{g_err:.2e} of atol {tol['grads'][0]:g} + rtol "
+              f"{tol['grads'][1]:g} (<= 1); the card's step "
+              f"repeats bit for bit: {bitwise}")
+        del params, keep, again, p_cpu, s_card, s_cpu
+        # as published (bf16 compute): the loss falls on a fixed batch
+        cfg = configs.get_smoke(arch)
+        params = init_params(cfg, g)
+        batch = train_batch(torch, cfg, B, S, dev, step=1)
+        opt = make_optimizer("adamw", lr=3e-3, warmup_steps=0,
+                             total_steps=100)
+        step = make_train_step(cfg, opt)
+        state = opt.init(params)
+        losses, times = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            params, state, met = step(params, state, batch, i)
+            losses.append(float(met["loss"]))
+            times.append(time.perf_counter() - t0)
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              f"train {arch} (bf16 compute): loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} over {steps} steps on a fixed batch "
+              f"({B}x{S}), median step "
+              f"{statistics.median(times[2:]) * 1e3:.1f} ms")
+        del params, state
+    free_device_memory(torch)
+
+
+def phase_train_guard(torch):
+    """K4 and K5 on the card raise under grad when an input requires grad
+    (they have no backward), and launch without grad."""
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.kernels.wkv import ops as wkv_ops
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    q, k, v = (torch.randn((1, 4, 64, 64), generator=g, device=dev)
+               for _ in range(3))
+    w = -torch.rand((1, 4, 64, 64), generator=g, device=dev)
+    u = torch.randn((4, 64), generator=g, device=dev)
+    qg = q.clone().requires_grad_(True)
+    raised = []
+    for name, call in (
+            ("K4", lambda: attn_ops.flash_attention(qg, k, v)),
+            ("K5", lambda: wkv_ops.wkv(qg, k, v, w, u, chunk=16))):
+        try:
+            call()
+        except RuntimeError as e:
+            raised.append((name, "has no backward" in str(e)))
+    before = (attn_ops.flash_attention.launches, wkv_ops.wkv.launches)
+    with torch.no_grad():
+        attn_ops.flash_attention(qg, k, v)
+        wkv_ops.wkv(qg, k, v, w, u, chunk=16)
+    torch.cuda.synchronize()
+    after = (attn_ops.flash_attention.launches, wkv_ops.wkv.launches)
+    check(raised == [("K4", True), ("K5", True)]
+          and after == (before[0] + 1, before[1] + 1),
+          f"train guard: K4 and K5 raise under grad with an input that "
+          f"requires grad ({raised}); under no_grad each launches once")
+
+
+def train_cli(args):
+    """``python -m repro_torch.launch.train`` started in a subprocess from
+    the checkout (:func:`finish` waits for it)."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train"] + args,
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def finish(proc, timeout):
+    """(returncode, stdout, stderr) of a :func:`train_cli` process; kills
+    it and fails past ``timeout`` seconds."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        fail(f"train subprocess passed {timeout} s: {err[-2000:]}")
+    return proc.returncode, out, err
+
+
+def final_loss(out: str) -> float:
+    import re
+    m = re.search(r"\[done\] final loss \S+ \(first \S+\); exact (\S+)",
+                  out)
+    if not m:
+        fail(f"train: no final loss in {out[-2000:]}")
+    return float(m.group(1))
+
+
+def phase_train_resume(torch):
+    """tests/test_fault_tolerance.py's recipe on the card: the launcher
+    uninterrupted, and killed at step 12 (after the step-8 checkpoint) then
+    resumed; the final losses within rtol 1e-5, difference and bitwise
+    equality printed. The first two run at once."""
+    import tempfile
+    common = TRAIN["resume"] + ["--device", TRAIN["device"]]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = train_cli(common + ["--ckpt-dir", f"{tmp}/ref"])
+        crash = train_cli(common + ["--ckpt-dir", f"{tmp}/ft",
+                                    "--die-at-step", str(TRAIN["die_at"])])
+        rc_ref, out_ref, err_ref = finish(ref, TRAIN["timeout"])
+        rc_crash, out_crash, _ = finish(crash, TRAIN["timeout"])
+        check(rc_ref == 0, f"train resume: the uninterrupted run exits 0 "
+              f"({err_ref[-2000:]})")
+        check(rc_crash != 0 and "[failure-injection] SIGKILL" in out_crash,
+              f"train resume: the run killed at step {TRAIN['die_at']} "
+              f"exits {rc_crash}")
+        rc, out_res, err_res = finish(
+            train_cli(common + ["--ckpt-dir", f"{tmp}/ft"]),
+            TRAIN["timeout"])
+    check(rc == 0 and "[resume] restored step" in out_res,
+          f"train resume: the resumed run restores a checkpoint and exits "
+          f"0 ({err_res[-2000:]})")
+    a, b = final_loss(out_ref), final_loss(out_res)
+    check(abs(a - b) <= 1e-5 * abs(a),
+          f"train resume on the card: final loss uninterrupted {a!r}, "
+          f"resumed {b!r}, |diff| {abs(a - b):.3e} <= 1e-5 x |loss|; "
+          f"bitwise equal: {a == b}; {time.perf_counter() - t0:.1f} s for "
+          "the three runs")
+
+
+def device_busy(torch, fn):
+    """(host ms, device-busy ms, kernels, the six kernel names of most
+    device time as (ms, launches, name)) of ``fn()`` under
+    ``torch.profiler`` (CUDA activity only): busy is the union of the
+    kernels' intervals. The profiler adds host time per launch, so the
+    host ms is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(len(kernels) > 0, "torch.profiler recorded the card's kernels")
+    busy, end, by_name = 0, None, {}
+    for a, b, name in sorted((e.time_range.start, e.time_range.end, e.name)
+                             for e in kernels):
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+        t, n = by_name.get(name, (0, 0))
+        by_name[name] = (t + b - a, n + 1)
+    ranked = sorted(((t / 1e3, n, name[:60]) for name, (t, n)
+                     in by_name.items()), reverse=True)[:6]
+    return host * 1e3, busy / 1e3, len(kernels), ranked
+
+
+def leaf_paths(tree, prefix=""):
+    """(path, tensor) of every leaf of a nest of dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_paths(v, f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def leaf_grad_norms(torch, cfg, params, batch):
+    """{leaf path: (gradient norm, per-layer norms of a stacked leaf, else
+    None)} of the train step's loss (the chunked paths) at ``params``."""
+    from repro_torch.models.model import loss_fn
+    named = list(leaf_paths(params))
+    for _, p in named:
+        p.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            loss, _ = loss_fn(params, cfg, batch, attn_impl="xla",
+                              wkv_impl="xla")
+            grads = torch.autograd.grad(loss, [p for _, p in named],
+                                        allow_unused=True)
+    finally:
+        for _, p in named:
+            p.requires_grad_(False)
+    out = {}
+    for (name, p), g in zip(named, grads):
+        g = torch.zeros_like(p, dtype=torch.float32) if g is None \
+            else g.float()
+        stacked = name.startswith(("blocks", "enc_blocks"))
+        out[name] = (float(g.norm()), g.reshape(g.shape[0], -1).norm(
+            dim=1).tolist() if stacked else None)
+    del grads
+    return out
+
+
+def print_grad_norms(arch, norms, rank_by, top=8):
+    """``norms``: {step: leaf_grad_norms}. The leaves of most gradient at
+    step ``rank_by``, each with its share of the squared norm at every
+    step; the per-layer norms of the top three stacked leaves."""
+    tot = {i: sum(n * n for n, _ in d.values()) for i, d in norms.items()}
+    ranked = sorted(norms[rank_by], key=lambda k: norms[rank_by][k][0],
+                    reverse=True)
+    for name in ranked[:top]:
+        print(f"train {arch} grad norm {name}: " + ", ".join(
+            f"step {i} {d[name][0]:.3e} ({d[name][0] ** 2 / tot[i]:.1%})"
+            for i, d in norms.items()), flush=True)
+    for name in [k for k in ranked if norms[rank_by][k][1] is not None][:3]:
+        for i, d in norms.items():
+            print(f"train {arch} grad norm {name} by layer, step {i}: "
+                  + " ".join(f"{x:.2e}" for x in d[name][1]), flush=True)
+
+
+def phase_train_full(torch, sh):
+    """``launch.train.main`` at the arch's width and depth (no checkpoint
+    directory): the median step time after two warm-up steps, tok/s, the
+    peak device memory, the first and last loss (finite, falling). Then
+    the same run again step by step as far as it needs, held to the
+    launcher's losses: the gradient norm of every leaf at its first step
+    and at the step of the largest norm, and its step 2 under
+    ``torch.profiler`` (the card's busy time beside the step's)."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.runtime.steps import make_train_step
+    arch = sh["arch"]
+    cfg = configs.get_smoke(arch) if sh["smoke"] else configs.get(arch)
+    B, S = sh["batch"], sh["seq"]
+    args = ["--arch", arch, "--steps", str(sh["steps"]), "--batch", str(B),
+            "--seq", str(S), "--seed", str(SEED), "--log-every", "1",
+            "--lr", repr(sh["lr"]), "--device", "cuda"] \
+        + ["--smoke"] * sh["smoke"]
+    n = cfg.param_count() + extra_params(cfg)
+    print(f"train: {' '.join(args)}; {n} parameters, f32 weights, "
+          f"gradients and two AdamW moments {16 * n / 1e9:.1f} GB, remat "
+          f"{cfg.remat}", flush=True)
+    free_device_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.main(args)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses, timed = run["losses"], run["step_s"][2:]
+    # per leaf at the first and the largest gradient norm's step
+    spike = max(range(len(losses)), key=run["grad_norms"].__getitem__)
+    probe = sorted({0, spike})
+    ms = statistics.median(timed) * 1e3
+    # 6 N T: forward and backward matmul work, the embedding gather aside
+    # (remat recomputes the forward on top)
+    flops = 6 * (n - cfg.vocab_size * cfg.d_model) * B * S
+    label = "smoke" if sh["smoke"] else "full"
+    head, tail = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+          and tail < head,
+          f"train {arch} {label}: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(mean of the first three {head:.4f}, of the last three "
+          f"{tail:.4f}) over {len(losses)} steps of {B}x{S}, finite and "
+          f"falling")
+    print(f"train {arch} {label} ({B}x{S}, remat {cfg.remat}): median step "
+          f"{ms:.1f} ms over {len(timed)} steps (min {min(timed) * 1e3:.1f}"
+          f", max {max(timed) * 1e3:.1f}), {B * S / ms * 1e3:.0f} tok/s, "
+          f"6NT {flops / ms / 1e9:.1f} TFLOP/s, peak device memory "
+          f"{peak:.2f} GB, {secs:.1f} s with init", flush=True)
+    del run
+    free_device_memory(torch)
+    # the launcher's run again, step by step up to the later of the spike
+    # and step 2: the gradient norm of every leaf at the steps in probe,
+    # and step 2 under the profiler
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    opt = make_optimizer(cfg.optimizer, lr=sh["lr"],
+                         total_steps=max(sh["steps"], 2))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    again, norms = [], {}
+    for i in range(max(spike, 2) + 1):
+        batch = train_batch(torch, cfg, B, S, dev, step=i)
+        if i in probe:
+            norms[i] = leaf_grad_norms(torch, cfg, params, batch)
+        if i == 2:
+            host, busy, n_k, top = device_busy(
+                torch, lambda: again.append(step(params, state, batch, i)[2]))
+        else:
+            again.append(step(params, state, batch, i)[2])
+    gn = {i: (math.sqrt(sum(x * x for x, _ in norms[i].values())),
+              float(again[i]["grad_norm"])) for i in probe}
+    rerun = [float(m["loss"]) for m in again]
+    check(all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(rerun, losses))
+          and all(abs(a - b) <= 1e-4 * b for a, b in gn.values()),
+          f"train {arch} {label} again step by step: losses within 1e-5 of "
+          f"the launcher's (bit for bit: {rerun == losses[:len(rerun)]}); "
+          f"the leaves' "
+          f"gradient norms give the step's grad norm within 1e-4 ("
+          + ", ".join(f"step {i} {a:.4e} / {b:.4e}" for i, (a, b)
+                      in gn.items())
+          + f"); {time.perf_counter() - t0:.1f} s")
+    print_grad_norms(arch, norms, spike)
+    print(f"train {arch} profiled step: {n_k} kernels, card busy "
+          f"{busy:.1f} ms of the profiled step's {host:.1f} ms; against the "
+          f"median step {ms:.1f} ms the card idles "
+          f"{max(0.0, 1 - busy / ms):.1%}", flush=True)
+    for k_ms, k_n, name in top:
+        print(f"train {arch} profiled step: {k_ms:9.2f} ms {k_n:6d} x "
+              f"{name}", flush=True)
+    del params, state
+    free_device_memory(torch)
+
+
+def phase_train(torch, smoke: bool):
+    sm = TRAIN["smoke"]
+    t0 = time.perf_counter()
+    phase_train_smoke(torch, sm["batch"], sm["seq"], sm["steps"])
+    t1 = time.perf_counter()
+    phase_train_guard(torch)
+    phase_train_resume(torch)
+    t2 = time.perf_counter()
+    phase_train_full(torch, TRAIN["rehearsal" if smoke else "full"])
+    print(f"train phase: smoke configs {t1 - t0:.1f} s, guard and resume "
+          f"{t2 - t1:.1f} s, full {time.perf_counter() - t2:.1f} s",
+          flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=M_MAIN,
@@ -4199,6 +4663,8 @@ def main(argv=None):
     phase_lm_smoke_configs(torch, rt, REPS)
     print(f"lm phase smoke configs: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # training, once the LM phases' weights are freed
+    phase_train(torch, args.lm_smoke)
     print(json.dumps({"kernels": rt["records"]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

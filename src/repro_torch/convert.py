@@ -81,7 +81,9 @@ def lm_params(tree, device="cuda"):
     """The JAX package's ``init_params`` tree, handed over as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's parameter tree:
     the same keys, the list of stacked segments, shapes and dtypes (bf16
-    leaves stay bf16)."""
+    leaves stay bf16). An AdamW or Adafactor state tree (``{"m", "v"}``,
+    ``{"f"}``) carries over the same way, and the port's optimizers take
+    it as it is (they match trees by key)."""
     if isinstance(tree, Mapping):
         return {k: lm_params(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -22,7 +22,9 @@ count, ``flash_attention.launches_tc`` or ``launches_fma``. A build or
 launch error raises; nothing falls back. ``impl="xla"`` is the chunked
 online-softmax path (:func:`chunked_attention`, the reference's
 ``chunked_attention_xla``). ``"pallas"`` and ``"pallas_interpret"`` have no
-counterpart and raise.
+counterpart and raise. The kernels have no backward: ``impl="cuda"`` raises
+(:func:`no_backward`) when grad is enabled and an input requires grad, on
+every device; training takes the ``xla`` path, as the reference's does.
 
 The TPU wrapper asserted Sq and Skv to be multiples of the block sizes; the
 CUDA kernels mask the ragged edges of both. Their tiles are fixed (64 rows
@@ -65,6 +67,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  chunk_q=block_q)
     if impl != "cuda":
         raise ValueError(f"unknown impl {impl!r}: 'cuda' or 'xla'")
+    no_backward("flash_attention", (q, k, v), "attn_impl='xla'")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_q=block_q, block_k=block_k)
@@ -81,6 +84,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
 flash_attention.launches_fma = 0
+
+
+def no_backward(name: str, inputs, chunked: str):
+    """Raise when autograd would need a backward of a ``"cuda"`` kernel:
+    grad enabled and an input that requires grad. The kernels write into
+    fresh tensors through ctypes, so their outputs carry no graph; the
+    chunked path is differentiable. Raised on every device, so that a CPU
+    run (where the plain version stands in) fails where the card would."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: impl='cuda' has no backward (the kernel's output "
+            f"carries no autograd graph); train through the chunked path, "
+            f"{chunked}, or run under torch.no_grad()")
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,

@@ -14,7 +14,9 @@ e^{chunk * 5} under the clamp, past f32's range above 17, where the
 reference's kernel returns NaN (ROADMAP section 3). Beyond the
 reference, the wrapper takes r, k, v and w_log as strided views (the model
 hands over its (B, S, H, hd) projections transposed, and no copy is made),
-returns y in r's layout, and returns the final state when asked.
+returns y in r's layout, and returns the final state when asked. Like K4,
+it has no backward and raises under grad when an input requires grad
+(``flash_attn.ops.no_backward``); the model trains through its chunked form.
 
 The kernel (one CTA per (b, h), the next chunk's rows in flight by 16-byte
 ``cp.async``) takes each of r, k, v and w_log by that copy when its base
@@ -28,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attn.ops import no_backward
 
 WKV_LOG_CLAMP = -5.0            # keep in sync with repro_torch.models.rwkv6
 # e^{chunk * |clamp|} must stay below f32's largest value, e^88.7
@@ -47,6 +50,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "the port's kernel is impl='cuda'")
     if impl != "cuda":
         raise ValueError(f"unknown impl {impl!r}: 'cuda'")
+    no_backward("wkv", (r, k, v, w_log, u), "wkv_impl='xla'")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"wkv: chunk {chunk} is not in 1..{MAX_CHUNK} "
                          "(the decay factors e^(5 chunk) overflow f32)")

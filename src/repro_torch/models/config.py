@@ -10,8 +10,12 @@ Families:
 The vlm entry (qwen2-vl-72b) is family=dense + mrope + vision stub.
 
 The port runs every family on one card.
-``remat``, ``scan_layers``, ``unroll_inner``, ``sp_collectives``, ``fsdp``
-and ``parallelism`` are compile-time or mesh knobs of the JAX package. They
+``remat`` picks what a training forward keeps for backward, as in the
+reference: each layer runs under ``torch.utils.checkpoint`` (``"full"``
+saves nothing inside a layer, ``"dots"`` saves the plain matmul outputs,
+``"none"`` checkpoints nothing); it does nothing while grad is disabled.
+``scan_layers``, ``unroll_inner``, ``sp_collectives``, ``fsdp`` and
+``parallelism`` are compile-time or mesh knobs of the JAX package. They
 are kept so that configurations carry over field for field, and they do
 nothing on one card: the port runs eagerly, loops over layers in Python and
 holds every tensor on one device.
@@ -77,8 +81,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     optimizer: str = "adamw"         # adamw | adafactor (arctic)
+    remat: str = "full"              # full | dots | none (module doc)
     # JAX compile-time and mesh knobs: no effect on one card (module doc)
-    remat: str = "full"              # full | dots | none
     scan_layers: bool = True
     unroll_inner: bool = False
     sp_collectives: bool = True

@@ -10,15 +10,23 @@ Layer kinds: ``"attn"`` (dense), ``"moe"``, ``"rwkv"``, ``"rec"`` and
 ``"attn_local"`` (griffin) and ``"cross"`` (the encoder-decoder's decoder
 layer); the encoder is a stack of ``"attn"`` layers run without the causal
 mask. The reference's ``shard(...)`` annotations, its ``gather_in`` /
-``scatter_out`` and its scan / remat are mesh and compile-time devices and
-have no counterpart on one card: ``_run_stack`` is a Python loop over the
-stacked layers.
+``scatter_out`` and its scan are mesh and compile-time devices and have no
+counterpart on one card: ``_run_stack`` is a Python loop over the stacked
+layers. Its remat is kept: while grad is enabled, each layer runs under
+``torch.utils.checkpoint`` by ``cfg.remat`` (:func:`_remat_context`), and
+each cross-entropy chunk is recomputed in backward as the reference's is.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.models import griffin as griffin_lib
 from repro_torch.models import moe as moe_lib
@@ -45,16 +53,20 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def tree_map2(fn, a, b):
-    """``fn(x, y)`` over matching tensors of two nests of dicts and lists."""
-    if isinstance(a, dict):
-        for key in a:
-            tree_map2(fn, a[key], b[key])
-    elif isinstance(a, (list, tuple)):
-        for x, y in zip(a, b):
-            tree_map2(fn, x, y)
+def zip_leaves(*trees):
+    """Tuples of matching tensors of ``trees`` (nests of dicts and lists),
+    walking dicts by the first tree's keys, so two trees pair whatever the
+    order of their dicts; a tensor of the first may face a subtree of
+    another (an Adafactor state's per-leaf dict)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        for k in first:
+            yield from zip_leaves(*(t[k] for t in trees))
+    elif isinstance(first, (list, tuple)):
+        for items in zip(*trees):
+            yield from zip_leaves(*items)
     else:
-        fn(a, b)
+        yield trees
 
 
 # ---------------------------------------------------------------------------
@@ -102,8 +114,10 @@ def _apply_block(params, cfg: ModelConfig, kind: str, x: Tensor,
                  positions: Tensor, *, causal: bool = True,
                  enc_out: Optional[Tensor] = None,
                  attn_impl: str = "cuda",
-                 wkv_impl: str = "cuda") -> Tuple[Tensor, Tensor]:
-    """Returns (x_out, aux_loss)."""
+                 wkv_impl: str = "cuda",
+                 count_drops: bool = True) -> Tuple[Tensor, Tensor]:
+    """Returns (x_out, aux_loss). ``count_drops=False`` keeps an MoE
+    layer out of ``moe.DROP_STATS`` (a recompute)."""
     eps = cfg.norm_eps
     cdt = cfg.compute_dtype
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -125,7 +139,8 @@ def _apply_block(params, cfg: ModelConfig, kind: str, x: Tensor,
         if kind == "moe":
             # moe_impl "a2a" (olmoe, arctic): the reference's moe_ffn_a2a
             # takes moe_ffn when there is no mesh, which one card is
-            h, aux = moe_lib.moe_ffn(params["moe"], cfg, ff_in)
+            h, aux = moe_lib.moe_ffn(params["moe"], cfg, ff_in,
+                                     count_drops=count_drops)
         else:
             h = mlp(params["mlp"], ff_in, cdt)
         return x + h, aux
@@ -191,7 +206,8 @@ def _stack_init(gen: torch.Generator, cfg, kinds: Tuple[str, ...]):
         seg = tree_map(lambda a: a.new_empty((count,) + a.shape), first)
         for li in range(count):
             layer = first if li == 0 else _init_block(gen, cfg, kind)
-            tree_map2(lambda dst, src: dst[li].copy_(src), seg, layer)
+            for dst, src in zip_leaves(seg, layer):
+                dst[li].copy_(src)
         out.append(seg)
     return out
 
@@ -222,17 +238,64 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Dict[str, Any]:
 # Forward (train / prefill / encoder)
 # ---------------------------------------------------------------------------
 
+# products saved under remat "dots": plain 2-D matmuls (``x @ w`` folds
+# its leading axes into one ``mm``); batched products are recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(cfg: ModelConfig):
+    """The reference's ``_remat_policy`` as a ``torch.utils.checkpoint``
+    ``context_fn``: None for ``"none"`` (no checkpoint); ``"full"``
+    (``nothing_saveable``) saves nothing inside a layer; ``"dots"``
+    (``checkpoint_dots_with_no_batch_dims``) saves the outputs of ``mm``
+    and recomputes the rest, batched products included."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat == "dots":
+        return lambda: create_selective_checkpoint_contexts(_save_dots)
+    return noop_context_fn
+
+
+def _unstack(tree, count: int):
+    """A stacked segment (a nest of dicts) as ``count`` per-layer trees,
+    one ``unbind`` per leaf: under autograd one node stacks the layers'
+    gradients, where indexing each layer out would make a full-size
+    gradient of every leaf for every layer."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(count)]
+    return list(tree.unbind(0))
+
+
 def _run_stack(segments, seg_meta, cfg: ModelConfig, x: Tensor,
                positions: Tensor, *, causal: bool, enc_out=None,
                attn_impl: str = "cuda", wkv_impl: str = "cuda"):
-    """Each homogeneous segment, layer by layer."""
+    """Each homogeneous segment, layer by layer; with grad enabled, each
+    layer under ``cfg.remat``'s checkpoint."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = _remat_context(cfg) if torch.is_grad_enabled() else None
     for (kind, count), stacked in zip(seg_meta, segments):
-        for li in range(count):
-            lp = tree_map(lambda a: a[li], stacked)
-            x, a = _apply_block(lp, cfg, kind, x, positions, causal=causal,
-                                enc_out=enc_out, attn_impl=attn_impl,
-                                wkv_impl=wkv_impl)
+        for lp in _unstack(stacked, count):
+            calls = []
+
+            def layer(xc, lp=lp, kind=kind, calls=calls):
+                # backward's recompute under remat is the second call: the
+                # layer's MoE capacity drops were counted in forward
+                calls.append(1)
+                return _apply_block(lp, cfg, kind, xc, positions,
+                                    causal=causal, enc_out=enc_out,
+                                    attn_impl=attn_impl, wkv_impl=wkv_impl,
+                                    count_drops=len(calls) == 1)
+            if remat is None:
+                x, a = layer(x)
+            else:
+                x, a = checkpoint(layer, x, use_reentrant=False,
+                                  context_fn=remat)
             aux_total = aux_total + a
     return x, aux_total
 
@@ -299,29 +362,36 @@ def forward(params, cfg: ModelConfig, *, tokens: Optional[Tensor] = None,
 # Loss: chunked cross-entropy (+ router aux + z-loss)
 # ---------------------------------------------------------------------------
 
+def _ce_chunk(hc: Tensor, head: Tensor, lc: Tensor):
+    """(sum of -log p(label), sum of lse^2) over one chunk, in f32."""
+    logits = hc.float() @ head
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    return (lse - gold).sum(), (lse ** 2).sum()
+
+
 def chunked_cross_entropy(h: Tensor, lm_head: Tensor, labels: Tensor,
                           chunk: int = 512, z_coef: float = 1e-4) -> Tensor:
     """h: (B,S,d) final hiddens; lm_head: (d,V); labels (B,S).
 
     The (B, chunk, V) logits are formed per chunk in f32 and dropped after
-    it: peak logits memory is B*chunk*V instead of B*S*V.
+    it; with grad enabled each chunk is checkpointed (the reference's
+    ``jax.checkpoint``), so backward recomputes them: peak logits memory
+    is B*chunk*V instead of B*S*V in either mode.
     """
     B, S, d = h.shape
-    nchunks = S // chunk if S % chunk == 0 else 1
-    if S % chunk != 0:
+    if S % chunk:
         chunk = S
     head = lm_head.float()
     nll = torch.zeros((), dtype=torch.float32, device=h.device)
     zl = torch.zeros((), dtype=torch.float32, device=h.device)
-    for c in range(nchunks):
-        hc = h[:, c * chunk:(c + 1) * chunk]
-        lc = labels[:, c * chunk:(c + 1) * chunk]
-        logits = hc.float() @ head
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
-        nll = nll + (lse - gold).sum()
-        zl = zl + (lse ** 2).sum()
-        del logits
+    for hc, lc in zip(h.split(chunk, dim=1), labels.split(chunk, dim=1)):
+        if torch.is_grad_enabled():
+            n, z = checkpoint(_ce_chunk, hc, head, lc, use_reentrant=False)
+        else:
+            n, z = _ce_chunk(hc, head, lc)
+        nll = nll + n
+        zl = zl + z
     ntok = B * S
     return nll / ntok + z_coef * zl / ntok
 

@@ -77,8 +77,11 @@ def capacity(cfg: ModelConfig, T: int) -> int:
 
 
 def moe_ffn(params, cfg: ModelConfig, x: Tensor, *,
-            capacity_override: Optional[int] = None) -> Tuple[Tensor, Tensor]:
-    """x: (B, S, d) -> (out, aux_loss). Sort-based capacity dispatch."""
+            capacity_override: Optional[int] = None,
+            count_drops: bool = True) -> Tuple[Tensor, Tensor]:
+    """x: (B, S, d) -> (out, aux_loss). Sort-based capacity dispatch.
+    ``count_drops=False`` leaves ``DROP_STATS`` alone (a recompute in
+    backward, whose drops forward counted)."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     T = B * S
@@ -103,7 +106,7 @@ def moe_ffn(params, cfg: ModelConfig, x: Tensor, *,
     keep = rank < C
     # Over-capacity entries go to the out-of-range slot E*C (dropped).
     slot = torch.where(keep, e_s * C + rank, E * C)             # (T*k,)
-    if DROP_STATS is not None:
+    if DROP_STATS is not None and count_drops:
         DROP_STATS.append((keep.sum(), T * k))
 
     # (E*C,) gather grid; sentinel row T => zero input. Kept slots are
