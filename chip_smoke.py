@@ -221,6 +221,32 @@ Phases (any failed check exits non-zero; no phase catches its own failure):
               ``torch.profiler`` for the card's busy time. The train path
               runs the chunked attention and WKV forms: no kernel launches.
 
+16. a2a     — all-to-all expert parallelism (``models/moe_a2a.py``), after
+              the LM phases, before training: olmoe-1b-7b at full width
+              and depth on a (1 data x 4 model) grid of gloo ranks sharing
+              the card (the weights shared by CUDA IPC; each rank takes a
+              view of its 16 experts). The single-rank forward (B 2 x S
+              4096, capacity 8: nothing can drop) records each MoE layer's
+              input and routing. One MoE layer in f32 at that shape, the
+              one whose input ``moe_ffn`` drops most of at capacity 1.25:
+              its local body at capacities under which nothing can drop,
+              against ``moe_ffn_dense_ref`` on the card (1e-4 relative,
+              routing flips counted apart and bounded); ``moe_ffn_a2a`` at
+              the config's 1.25, against the same layer on the same gloo
+              ranks computing on the CPU, 2 threads a rank (output and
+              dropped pairs; the drop share printed). Then
+              ``model.forward`` with ``moe_impl="a2a"`` in bf16 on the
+              ranks, at the least capacity factor whose two stages hold
+              the single-rank routing (x 1.1), every pair kept (counted),
+              K4 16 launches a rank on the tensor-core route, timed (ms a
+              forward, the slowest rank), the recorder's token-hop bytes a
+              layer against 2 x Csend x M x d x 2; its logits against the
+              single-rank forward's, free (printed) and with the experts
+              pinned to the single rank's (held to the dense families'
+              fixed bounds). Then the dry-run's roofline terms of the
+              star_f32 fit cell, and of the main path's shape at world 1
+              beside phase 4's ms/iter and K3's bound.
+
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. The script imports no JAX and nothing of
 the JAX package.
@@ -247,12 +273,6 @@ ITERS = 200                  # iteration cap of the main-path solves
 REPS = 10                    # timed calls per kernel (median)
 SEED = 0
 KINDS = ("logistic", "hinge", "l1", "least_squares", "quantile")
-# Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# HBM bytes/s, FP32 (non-tensor) FLOP/s and bf16 tensor-core FLOP/s, by
-# the card's name.
-PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
-         "H100 NVL": (3.9e12, 60e12, 835e12),
-         "H100": (3.35e12, 67e12, 989.4e12)}
 
 
 def logistic_flops(delta: float, newton_iters: int = 3) -> int:
@@ -342,13 +362,6 @@ def smi_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def peaks(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    return "H100", PEAKS["H100"]
 
 
 def bound(rt, nbytes, nflops, peak="fp32"):
@@ -4582,6 +4595,361 @@ def phase_train_full(torch, sh):
     free_device_memory(torch)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: all-to-all expert parallelism on a (1 data x 4 model) grid
+# ---------------------------------------------------------------------------
+
+# olmoe-1b-7b (arXiv:2409.02060) at full width and depth on 4 gloo ranks
+# sharing the card; the layer checks in f32 compute, the forward as
+# published (bf16 compute)
+A2A = dict(arch="olmoe-1b-7b", grid=((1, 4), ("data", "model")), batch=2,
+           seq=4096, layers=None, cpu_threads=2, timeout=400.0,
+           # tokens whose output may differ beyond the bound: a near-tie of
+           # the k-th and (k+1)-th router probabilities that two f32 GEMMs
+           # of different row counts round apart
+           flip_share=1e-3)
+
+
+def a2a_no_drop(cfg, M: int):
+    """(send_cf, recv_cf) under which ``moe_ffn_a2a_local`` drops nothing
+    on any routing: Csend = T_loc k (every pair of a rank fits one
+    destination), C_loc = M T_loc (every token of the line fits one
+    expert)."""
+    return float(M), cfg.num_experts // M / cfg.experts_per_token
+
+
+def a2a_fwd_capacity(torch, cfg, routes, B, S, M, margin=1.1):
+    """The capacity factor of the a2a forward: the least, in steps of
+    1/64, at which both of ``moe_ffn_a2a``'s stages hold ``margin`` times
+    the single-rank forward's routing (``routes``): stage 1 the most pairs
+    any rank sent any destination in any layer, stage 2 the most pairs any
+    expert took in any layer (the a2a forward's own routing may flip a
+    near-tie). The forward's drop count is checked."""
+    from repro_torch.models import moe_a2a
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T_loc, E_loc = B * S // M, E // M
+    worst1 = worst2 = 0
+    for r in routes:
+        worst2 = max(worst2, int(torch.bincount(r.reshape(-1),
+                                                minlength=E).max()))
+        dest = r.reshape(B, M, S // M, k) // E_loc          # (B, m, s, k)
+        for m in range(M):
+            c = torch.bincount(dest[:, m].reshape(-1), minlength=M)
+            worst1 = max(worst1, int(c.max()))
+    cf = 1.0
+    while True:
+        Csend, C_loc = moe_a2a.capacities(
+            dataclasses.replace(cfg, capacity_factor=cf), T_loc, M)
+        if Csend >= worst1 * margin and C_loc >= worst2 * margin:
+            return cf
+        cf += 1 / 64
+
+
+def a2a_rank(plan, layer, params, x, tokens, routes):
+    """One rank of phase 16 (``compat.spawn``): joins the grid, runs the
+    MoE layer as ``plan``'s ``layer_runs`` say (name, capacities, and
+    whether on the card or on the CPU: the same gloo ranks then hold CPU
+    copies of the layer and compute on ``cpu_threads`` threads each):
+    ``moe_ffn_a2a`` at the config's capacity, or its local body at given
+    (send_cf, recv_cf) on this rank's positions and expert shard, gathered
+    over the line. Then the bf16 forward through ``model.forward`` with
+    ``moe_impl="a2a"``, timed and counted, and again with the experts
+    pinned to the single-rank forward's choices (``moe_routes``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attn import ops as attn_ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import moe_a2a
+    from repro_torch.roofline import hlo
+    from repro_torch.sharding import compat, specs
+
+    grid = compat.join_grid(compat.make_grid(*plan["grid"]))
+    first = grid.rank == 0
+    M, m = grid.axis_size("model"), grid.index("model")
+    group = grid.group("model")
+    B, S, d = x.shape
+    Sl = S // M
+    out = {}
+
+    def sync(t):
+        if t.is_cuda:
+            torch.cuda.synchronize()
+
+    def drops():
+        stats, moe_lib.DROP_STATS = moe_lib.DROP_STATS, None
+        return (sum(int(k) for k, _ in stats), sum(r for _, r in stats),
+                len(stats))
+
+    def body(lp, cfg, xin, cf):
+        spec = specs.param_spec(lp)
+        mine = {key: specs.local_slice(v, spec[key], grid)
+                for key, v in lp.items()}
+        o, _ = moe_a2a.moe_ffn_a2a_local(
+            mine, cfg, xin[:, m * Sl:(m + 1) * Sl].reshape(B * Sl, d),
+            group=group, M=M, send_cf=cf[0], recv_cf=cf[1])
+        return compat.all_gather_cat(o.reshape(B, Sl, d), group, dim=1)
+
+    with compat.use_grid(grid), torch.inference_mode():
+        threads = torch.get_num_threads()
+        for name, cf, on_cpu in plan["layer_runs"]:
+            lp, xin = layer, x
+            if on_cpu:
+                lp = {key: v.cpu() for key, v in layer.items()}
+                xin = x.cpu()
+                torch.set_num_threads(plan["cpu_threads"])
+            moe_lib.DROP_STATS = []
+            t0 = time.perf_counter()
+            if cf is None:
+                o, _ = moe_a2a.moe_ffn_a2a(lp, plan["cfg_f32"], xin)
+            else:
+                o = body(lp, plan["cfg_f32"], xin, cf)
+            sync(o)
+            out[name] = (o if first else None, drops(),
+                         time.perf_counter() - t0)
+            torch.set_num_threads(threads)
+            del lp, xin
+        cfg = plan["cfg_fwd"]
+        mine = [r.reshape(B, -1, r.shape[-1])[:, m * Sl:(m + 1) * Sl]
+                .reshape(-1, r.shape[-1]) for r in routes]
+        # warm-up: one layer (K4's library, the bf16 products' handles)
+        model_lib.forward(params, dataclasses.replace(cfg, num_layers=1),
+                          tokens=tokens)
+        zero_counts(attn_ops.flash_attention)
+        moe_lib.DROP_STATS = []
+        sync(x)
+        dist.barrier()
+        with hlo.CollectiveRecorder() as rec:
+            t0 = time.perf_counter()
+            h, _ = model_lib.forward(params, cfg, tokens=tokens)
+            sync(h)
+            dist.barrier()
+            ms = (time.perf_counter() - t0) * 1e3
+        out["forward"] = dict(
+            h=h if first else None, ms=ms, drops=drops(), ops=rec.ops,
+            launches=attn_ops.flash_attention.launches,
+            routes=route_counts(attn_ops.flash_attention))
+        moe_lib.DROP_STATS = []
+        with moe_routes(torch, replay=mine):
+            h, _ = model_lib.forward(params, cfg, tokens=tokens)
+        out["pinned"] = (h if first else None, drops())
+    return out
+
+
+def a2a_close(torch, got, want, share):
+    """(max |got - want| / max |want| over the tokens within 1e-3 of it,
+    the share of tokens beyond that): a routing flip moves a token by
+    O(1), and such tokens are counted apart and bounded by ``share``."""
+    d = (got.float() - want.float()).abs().amax(dim=-1)
+    top = float(want.float().abs().max())
+    moved = d > 1e-3 * top
+    rest = float(d[~moved].max()) / top if bool((~moved).any()) else 0.0
+    return rest, float(moved.float().mean())
+
+
+def phase_a2a(torch, rt, smoke: bool = False):
+    """Phase 16: ``models.moe_a2a`` on olmoe-1b-7b at full width on a
+    (1 data x 4 model) grid of gloo ranks sharing the card (see the module
+    docstring); then the dry-run's roofline beside phase 4's measurement."""
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_attn.ops import route
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import moe_a2a
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.sharding import compat
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = configs.get_smoke(A2A["arch"]) if smoke \
+        else configs.get(A2A["arch"])
+    if A2A["layers"]:
+        cfg = dataclasses.replace(cfg, num_layers=A2A["layers"])
+    B, S = (2, 32) if smoke else (A2A["batch"], A2A["seq"])
+    (_, M), axes = A2A["grid"]
+    E_loc, k = cfg.num_experts // M, cfg.experts_per_token
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, g)
+    torch.cuda.synchronize()
+    print(f"a2a: {cfg.name}, {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_experts} experts top-{k} ({E_loc} a rank) on a "
+          f"{A2A['grid'][0]} grid of gloo ranks sharing the card; weights "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    nodrop = a2a_no_drop(cfg, M)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev)
+    # the single-rank forward on the card at capacity E / k, where nothing
+    # can drop; it records each MoE layer's input (the hidden states after
+    # attention) and routing
+    own_ffn, seen = moe_lib.moe_ffn, []
+
+    def grab(p, c, xin, **kw):
+        seen.append(xin)
+        return own_ffn(p, c, xin, **kw)
+
+    with torch.inference_mode():
+        one = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / k)
+        routes = []
+        moe_lib.DROP_STATS = []
+        moe_lib.moe_ffn = grab
+        try:
+            with moe_routes(torch, record=routes):
+                h_one, _ = forward(params, one, tokens=tokens)
+        finally:
+            moe_lib.moe_ffn = own_ffn
+        torch.cuda.synchronize()
+        one_drop = drop_share(moe_lib.DROP_STATS)
+        # the layer checks take the layer whose input ``moe_ffn`` drops
+        # most of at the config's capacity: the drop rule at work
+        shares = []
+        for li, xin in enumerate(seen):
+            lp = {key: v[li] for key, v in params["blocks"][0]["moe"].items()}
+            moe_lib.DROP_STATS = []
+            moe_lib.moe_ffn(lp, cfg, xin)
+            shares.append(drop_share(moe_lib.DROP_STATS))
+        moe_lib.DROP_STATS = None
+        li = max(range(len(shares)), key=shares.__getitem__)
+        layer = {key: v[li] for key, v in params["blocks"][0]["moe"].items()}
+        x = seen[li].float()
+        del seen, lp, xin
+        dense = moe_lib.moe_ffn_dense_ref(layer, f32, x)
+    check(one_drop == 0.0, f"a2a: the single-rank forward at capacity "
+          f"{one.capacity_factor:g} drops nothing ({one_drop})")
+    print(f"a2a: moe_ffn's drop share at capacity {cfg.capacity_factor} by "
+          f"layer {[round(v, 4) for v in shares]}: the layer checks take "
+          f"layer {li}", flush=True)
+    fwd = dataclasses.replace(cfg, capacity_factor=a2a_fwd_capacity(
+        torch, cfg, routes, B, S, M))
+    # the layer at the config's capacity on the card and, on the same
+    # gloo ranks, on the CPU
+    plan = dict(grid=A2A["grid"], cfg_f32=f32, cfg_fwd=fwd,
+                cpu_threads=A2A["cpu_threads"],
+                layer_runs=[("nodrop", nodrop, False), ("cap", None, False),
+                            ("cpu", None, True)])
+    t0 = time.perf_counter()
+    ranks = compat.spawn(a2a_rank, M, "gloo",
+                         args=(plan, layer, params, x, tokens, routes),
+                         device=dev.type, timeout=A2A["timeout"])
+    print(f"a2a: {M} ranks spawned, run and joined in "
+          f"{time.perf_counter() - t0:.1f} s (the layer at no-drop "
+          f"capacities {max(r['nodrop'][2] for r in ranks):.2f} s; at the "
+          f"config's {max(r['cap'][2] for r in ranks):.2f} s on the card, "
+          f"{max(r['cpu'][2] for r in ranks):.2f} s on the CPU, "
+          f"{A2A['cpu_threads']} threads a rank)", flush=True)
+
+    # 1. one MoE layer at the forward shape, f32 compute
+    T = B * S
+    flip = A2A["flip_share"]
+    o_nd, (kept, routed, _) = ranks[0]["nodrop"][0], (
+        sum(r["nodrop"][1][0] for r in ranks),
+        sum(r["nodrop"][1][1] for r in ranks), None)
+    check(kept == routed == T * k,
+          f"a2a layer, no-drop capacities (send_cf {nodrop[0]:g}, recv_cf "
+          f"{nodrop[1]:g}): {kept} of {routed} pairs kept")
+    err, moved = a2a_close(torch, torch.as_tensor(o_nd, device=dev), dense,
+                           flip)
+    check(err <= 1e-4 and moved <= flip,
+          f"a2a layer {B}x{S} f32 vs moe_ffn_dense_ref on the card: max "
+          f"|d| / max |ref| {err:.2e} <= 1e-4 over the tokens within 1e-3; "
+          f"tokens beyond {moved:.2e} <= {flip:g} (routing flips)")
+    o_cap = torch.as_tensor(ranks[0]["cap"][0], device=dev)
+    o_cpu = torch.as_tensor(ranks[0]["cpu"][0], device=dev)
+    d_card = sum(r["cap"][1][1] - r["cap"][1][0] for r in ranks)
+    d_cpu = sum(r["cpu"][1][1] - r["cpu"][1][0] for r in ranks)
+    err, moved = a2a_close(torch, o_cap, o_cpu, flip)
+    print(f"a2a layer {li} at capacity {cfg.capacity_factor}, B {B} x S "
+          f"{S}: {d_card} of {T * k} (token, expert) pairs dropped on the "
+          f"card ({d_card / (T * k):.4f}), {d_cpu} on the CPU ranks",
+          flush=True)
+    check(err <= 1e-4 and moved <= flip and abs(d_card - d_cpu)
+          <= k * moved * T,
+          f"a2a layer at capacity {cfg.capacity_factor}, card ranks vs CPU "
+          f"ranks: max |d| / max |ref| {err:.2e} <= 1e-4 over the tokens "
+          f"within 1e-3, tokens beyond {moved:.2e} <= {flip:g}, dropped "
+          f"pairs {d_card} vs {d_cpu} (apart by at most k x the tokens "
+          "beyond)")
+    del dense, o_nd, o_cap, o_cpu
+    if smoke:
+        return
+
+    # 2. the forward through model.forward with moe_impl "a2a"
+    fw = [r["forward"] for r in ranks]
+    ms = max(f["ms"] for f in fw)
+    for name, st in (("", [f["drops"] for f in fw]),
+                     (", experts pinned", [r["pinned"][1] for r in ranks])):
+        d_kept, d_routed = sum(d[0] for d in st), sum(d[1] for d in st)
+        check(d_kept == d_routed == T * k * cfg.num_layers,
+              f"a2a forward{name} at capacity {fwd.capacity_factor:g}: "
+              f"{d_kept} of {d_routed} pairs kept")
+    want = route(cfg.compute_dtype, cfg.head_dim)
+    for r, f in enumerate(fw):
+        check(f["launches"] == cfg.num_layers
+              and f["routes"][want] == cfg.num_layers,
+              f"a2a forward, rank {r}: K4 launched {f['launches']} times = "
+              f"{cfg.num_layers} layers, on the {want} route {f['routes']}")
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    lg_one = h_one[:, -64:].float() @ head.float()
+    for name, h in (("free", fw[0]["h"]), ("pinned", ranks[0]["pinned"][0])):
+        lg = torch.as_tensor(h, device=dev)[:, -64:].float() @ head.float()
+        e_max, e_mean = rel_diffs(torch, lg, lg_one)
+        if name == "free":
+            print(f"a2a forward vs single-rank forward (experts free), "
+                  f"last 64 positions' logits: max |d| / max {e_max:.2e}, "
+                  f"mean {e_mean:.2e}", flush=True)
+        else:
+            check(e_max <= 1e-1 and e_mean <= 5e-2,
+                  f"a2a forward vs single-rank forward, experts pinned to "
+                  f"the single rank's, last 64 positions' logits bf16: max "
+                  f"|d| / max {e_max:.2e} <= 1e-1, mean {e_mean:.2e} <= "
+                  "5e-2 (the dense families' fixed bounds)")
+    hops = [o for o in fw[0]["ops"] if o["kind"] == "all-to-all"]
+    T_loc = T // M
+    Csend, C_loc = moe_a2a.capacities(fwd, T_loc, M)
+    token_bytes = sum(o["bytes"] for o in hops
+                      if o["bytes"] != M * Csend * 8) / cfg.num_layers
+    formula = moe_a2a.hop_bytes(fwd, T_loc, M, 2)
+    check(len(hops) == 3 * cfg.num_layers and token_bytes == formula,
+          f"a2a forward: {len(hops)} all-to-alls = 3 a layer; the token "
+          f"hops {token_bytes:.0f} B a layer a rank (recorded) = 2 x Csend "
+          f"{Csend} x M {M} x d {cfg.d_model} x 2 B = {formula} (formula)")
+    print(f"a2a forward {B}x{S}, {cfg.num_layers} layers, bf16, on {M} "
+          f"ranks: {ms:.1f} ms a forward (slowest rank); {M} ranks x "
+          f"{token_bytes / 1e6:.1f} MB of token hops a layer, staged "
+          f"through pinned host memory [{smi_line()}]", flush=True)
+    del ranks, fw, h_one, lg_one, routes, params, layer, x
+    print(f"a2a: freed, {free_device_memory(torch):.2f} GB still allocated",
+          flush=True)
+
+    # 3. the dry-run's roofline beside phase 4's measurement
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    star = dryrun.run_fit_cell("star_f32", multi_pod=False, out_dir=None,
+                               quiet=True)
+    main = dryrun.run_fit_cell(
+        dict(m=M_MAIN, n=307, dtype=torch.float32), multi_pod=False,
+        out_dir=None, grid=compat.make_grid((1,), ("data",)), quiet=True)
+
+    def terms(t):
+        return (f"compute {t['compute_s'] * 1e3:.3f} ms, memory "
+                f"{t['memory_s'] * 1e3:.3f} ms, collective "
+                f"{t['collective_s'] * 1e3:.4f} ms ({t['bottleneck']})")
+
+    for phase in ("setup", "iter", "fused_iter"):
+        print(f"dry-run star_f32 on {make_production_mesh().shape}, "
+              f"{phase}: {terms(star[phase]['roofline'])}", flush=True)
+    k3 = [r for r in rt["records"] if r["name"] == "K3_admm_iter"]
+    per_iter = rt["local_f32"][2] if "local_f32" in rt else float("nan")
+    print(f"dry-run main path {M_MAIN} x 307 f32 at world 1, fused_iter "
+          f"(unfused bytes): {terms(main['fused_iter']['roofline'])}; "
+          f"measured {per_iter:.2f} ms/iter (phase 4), K3 "
+          f"{k3[0]['ms'] if k3 else float('nan'):.3f} ms, bound "
+          f"{k3[0]['bound_ms'] if k3 else float('nan'):.3f} ms "
+          f"[{smi_line()}]", flush=True)
+    print(f"a2a phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def phase_train(torch, smoke: bool):
     sm = TRAIN["smoke"]
     t0 = time.perf_counter()
@@ -4619,6 +4987,8 @@ def main(argv=None):
 
     smi = smi_line()
     name = torch.cuda.get_device_name(0)
+    # the card's published peaks: the table the roofline terms read too
+    from repro_torch.roofline.hlo import peaks
     peak_key, (bw, flops, tc) = peaks(name)
     print(f"device: {smi} (peaks of {peak_key}: {bw / 1e12:.2f} TB/s, "
           f"{flops / 1e12:.0f} TFLOP/s FP32, {tc / 1e12:.1f} TFLOP/s bf16 "
@@ -4663,6 +5033,7 @@ def main(argv=None):
     phase_lm_smoke_configs(torch, rt, REPS)
     print(f"lm phase smoke configs: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    phase_a2a(torch, rt, args.lm_smoke)
     # training, once the LM phases' weights are freed
     phase_train(torch, args.lm_smoke)
     print(json.dumps({"kernels": rt["records"]}), flush=True)

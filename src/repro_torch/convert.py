@@ -98,3 +98,11 @@ def problem_data(D, aux=None, device="cuda",
     return (tensor(D, device, dtype),
             None if aux is None else tensor(aux, device, torch.float32))
 
+
+def lm_params_shard(tree, spec_tree, grid, coords, device="cuda"):
+    """One rank's block of a JAX ``init_params`` tree (numpy arrays) as the
+    port's parameters: each leaf cut under its spec (``spec_tree``, e.g.
+    ``sharding.specs.param_spec``) for the rank at ``coords`` of ``grid``,
+    then converted as :func:`lm_params` does."""
+    from repro_torch.sharding.specs import shard_tree
+    return lm_params(shard_tree(tree, spec_tree, grid, coords), device)

@@ -27,6 +27,7 @@ import torch
 from repro_torch.kernels.flash_attn.ops import chunked_attention
 from repro_torch.models import griffin as griffin_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import moe_a2a
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import _project_qkv, attend_cache, \
@@ -226,8 +227,11 @@ def _block_prefill(params, cfg: ModelConfig, kind: str, x: Tensor,
             x = x + o @ xa["wo"].to(cdt)
             _store(cache, xk=xk, xv=xv)
         ff_in = rmsnorm(x, params["ln2"], eps)
-        if kind == "moe":
-            # moe_impl "a2a": moe_ffn on one card (model._apply_block)
+        if kind == "moe" and cfg.moe_impl == "a2a":
+            # prefill takes the a2a path (the decode step, S = 1, keeps
+            # moe_ffn, as the reference's does)
+            h, _ = moe_a2a.moe_ffn_a2a(params["moe"], cfg, ff_in)
+        elif kind == "moe":
             h, _ = moe_lib.moe_ffn(params["moe"], cfg, ff_in)
         else:
             h = mlp(params["mlp"], ff_in, cdt)

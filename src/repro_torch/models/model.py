@@ -30,6 +30,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.models import griffin as griffin_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import moe_a2a
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -136,9 +137,12 @@ def _apply_block(params, cfg: ModelConfig, kind: str, x: Tensor,
                               kv_override=cross_kv(xa, cfg, enc_out),
                               attn_impl=attn_impl)
         ff_in = rmsnorm(x, params["ln2"], eps)
-        if kind == "moe":
-            # moe_impl "a2a" (olmoe, arctic): the reference's moe_ffn_a2a
-            # takes moe_ffn when there is no mesh, which one card is
+        if kind == "moe" and cfg.moe_impl == "a2a":
+            # olmoe, arctic: all-to-all EP over the current grid's 'model'
+            # line; moe_ffn without a grid (one card)
+            h, aux = moe_a2a.moe_ffn_a2a(params["moe"], cfg, ff_in,
+                                         count_drops=count_drops)
+        elif kind == "moe":
             h, aux = moe_lib.moe_ffn(params["moe"], cfg, ff_in,
                                      count_drops=count_drops)
         else:

@@ -110,11 +110,15 @@ def moe_ffn(params, cfg: ModelConfig, x: Tensor, *,
         DROP_STATS.append((keep.sum(), T * k))
 
     # (E*C,) gather grid; sentinel row T => zero input. Kept slots are
-    # distinct, so the writes below never collide.
-    grid_tok = torch.full((E * C,), T, dtype=torch.long, device=dev)
-    grid_tok[slot[keep]] = t_s[keep]
-    grid_w = torch.zeros((E * C,), dtype=torch.float32, device=dev)
-    grid_w[slot[keep]] = w_s[keep]
+    # distinct, so the writes below never collide; dropped ones land in
+    # the extra slot E*C, cut off (no boolean mask: the shapes stay known
+    # on the meta device, where the dry-run counts this path)
+    grid_tok = torch.full((E * C + 1,), T, dtype=torch.long, device=dev)
+    grid_tok[slot] = t_s
+    grid_tok = grid_tok[:E * C]
+    grid_w = torch.zeros((E * C + 1,), dtype=torch.float32, device=dev)
+    grid_w[slot] = w_s
+    grid_w = grid_w[:E * C]
 
     xt_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
     expert_in = xt_pad[grid_tok].reshape(E, C, d)               # gather

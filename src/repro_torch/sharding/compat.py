@@ -28,6 +28,14 @@ the one place that makes, enters and describes that group:
     and when ranks share a card (NCCL refuses two ranks on one device).
   * :func:`shard_rows` and :class:`RowShard` — one rank's rows of a
     zero-padded array.
+  * :class:`Grid`, :func:`make_grid`, :func:`join_grid`, :func:`use_grid`
+    and :func:`current_grid` — a named grid of ranks (the reference's 2-D
+    and 3-D meshes, ``("data", "model")`` or ``("pod", "data", "model")``):
+    a pure description until a process group of its size is up, then also
+    this rank's coordinates and one sub-group per axis line.
+  * :func:`all_to_all`, :func:`all_gather_cat` and :func:`all_reduce_sum` —
+    the collectives on one axis line, staged through pinned host buffers
+    when a gloo group carries CUDA tensors.
 
 ``cost_analysis`` and ``shard_map`` are XLA's and have no counterpart: a
 rank runs its own program on its own rows, and no compiled module exists
@@ -46,7 +54,7 @@ import tempfile
 import time
 import traceback
 from datetime import timedelta
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -129,9 +137,14 @@ def use_group(group: Group):
         _CURRENT.reset(token)
 
 
-def axis_size(group: Optional[Group] = None) -> int:
+def axis_size(group=None) -> int:
     """The world size of ``group`` (default: the current group; 1 without
-    one)."""
+    one). An axis name, or a tuple of them, gives the size of that axis of
+    the current grid (the reference's ``compat.axis_size(axis)``): 1 without
+    a grid, where every axis is a world of one."""
+    if isinstance(group, (str, tuple)):
+        grid = current_grid()
+        return 1 if grid is None else grid.axis_size(group)
     g = group if group is not None else current_group()
     return 1 if g is None else g.world
 
@@ -162,6 +175,187 @@ def make_group(device="cuda"):
         yield Group(world, rank, backend, local)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# grids of ranks
+# ---------------------------------------------------------------------------
+
+_GRID: contextvars.ContextVar[Optional["Grid"]] = contextvars.ContextVar(
+    "repro_torch_grid", default=None)
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """A named grid of ranks, the port's counterpart of a JAX ``Mesh``.
+
+    Rank r sits at the row-major coordinates of r in ``shape`` (the device
+    order of ``jax.make_mesh`` on host devices). As made by
+    :func:`make_grid` it is a pure description: nothing is allocated and no
+    group is joined, so the dry-run can use the production layouts. As
+    returned by :func:`join_grid` it also holds this rank and, per axis,
+    the process group of this rank's line along that axis (None where the
+    axis has size 1, or for the whole world when the line is the world)."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+    rank: Optional[int] = None
+    groups: Tuple[Any, ...] = ()
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"grid shape {self.shape} and axes "
+                             f"{self.axes} differ in length")
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return self.axes
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    @property
+    def joined(self) -> bool:
+        return self.rank is not None
+
+    def axis_size(self, axis) -> int:
+        """The size of one axis, or the product over a tuple of axes."""
+        if isinstance(axis, tuple):
+            return int(np.prod([self.axis_size(a) for a in axis],
+                               dtype=np.int64))
+        return self.shape[self.axes.index(axis)]
+
+    def coords_of(self, rank: int) -> Tuple[int, ...]:
+        return tuple(int(c) for c in np.unravel_index(rank, self.shape))
+
+    def index(self, axis, coords: Optional[Sequence[int]] = None) -> int:
+        """This rank's (or ``coords``') index along ``axis``; along a tuple
+        of axes, the row-major index over them (how a dimension split over
+        several axes is tiled)."""
+        if coords is None and self.rank is None:
+            raise ValueError("a grid description has no rank: join it")
+        c = self.coords_of(self.rank) if coords is None else tuple(coords)
+        names = axis if isinstance(axis, tuple) else (axis,)
+        i = 0
+        for a in names:
+            i = i * self.axis_size(a) + c[self.axes.index(a)]
+        return i
+
+    def line(self, axis, rank: Optional[int] = None) -> List[int]:
+        """The ranks of ``rank``'s line along ``axis``, in axis order."""
+        c = list(self.coords_of(self.rank if rank is None else rank))
+        k = self.axes.index(axis)
+        out = []
+        for j in range(self.shape[k]):
+            c[k] = j
+            out.append(int(np.ravel_multi_index(c, self.shape)))
+        return out
+
+    def group(self, axis):
+        """The process group of this rank's line along ``axis``."""
+        if not self.joined:
+            raise ValueError("a grid description has no groups: join it")
+        return self.groups[self.axes.index(axis)]
+
+
+def make_grid(shape: Sequence[int], axes: Sequence[str]) -> Grid:
+    """A grid description (the reference's ``make_mesh``)."""
+    return Grid(tuple(int(s) for s in shape), tuple(axes))
+
+
+def join_grid(grid: Grid) -> Grid:
+    """``grid`` with this rank's coordinates and one ``dist.new_group`` per
+    axis line, inside a process group of exactly ``grid.size`` ranks. Every
+    rank makes every line's group in the same order, as ``new_group``
+    requires; a line of one rank gets no group, and a line that is the
+    whole world takes the default group."""
+    if not dist.is_initialized():
+        raise RuntimeError("join_grid needs an initialized process group")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != grid.size:
+        raise ValueError(f"grid {grid.shape} needs {grid.size} ranks, the "
+                         f"group has {world}")
+    groups = []
+    for axis, n in zip(grid.axes, grid.shape):
+        mine = None
+        if n == world:
+            mine = dist.group.WORLD
+        elif n > 1:
+            lines = sorted({tuple(grid.line(axis, r)) for r in range(world)})
+            for ranks in lines:
+                g = dist.new_group(list(ranks))
+                if rank in ranks:
+                    mine = g
+        groups.append(mine)
+    return dataclasses.replace(grid, rank=rank, groups=tuple(groups))
+
+
+def current_grid() -> Optional[Grid]:
+    """The grid entered with :func:`use_grid`, or None."""
+    return _GRID.get()
+
+
+@contextlib.contextmanager
+def use_grid(grid: Optional[Grid]):
+    """Make ``grid`` the current grid inside the block."""
+    token = _GRID.set(grid)
+    try:
+        yield grid
+    finally:
+        _GRID.reset(token)
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """A CUDA tensor on a gloo group: gloo has no card path for every
+    collective, so the hop goes through pinned host memory."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Equal chunks of dim 0 of ``t``, chunk j to rank j of ``group``;
+    chunk i of the result came from rank i (``jax.lax.all_to_all(x, axis,
+    0, 0, tiled=False)`` on (M, ...) buffers)."""
+    if _staged(t, group):
+        host = _to_host(t.contiguous())
+        out = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        dist.all_to_all_single(out, host, group=group)
+        return out.to(t.device)
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` of ``group``, concatenated along ``dim`` in rank
+    order."""
+    n = dist.get_world_size(group)
+    src = t.contiguous()
+    staged = _staged(src, group)
+    if staged:
+        src = _to_host(src)
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(t.device) if staged else out
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group`` (a new tensor)."""
+    if _staged(t, group):
+        host = _to_host(t)
+        dist.all_reduce(host, group=group)
+        return host.to(t.device)
+    out = t.clone()
+    dist.all_reduce(out, group=group)
+    return out
 
 
 # ---------------------------------------------------------------------------

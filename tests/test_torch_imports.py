@@ -58,7 +58,13 @@ def test_port_imports_no_jax_and_no_repro():
                  "configs.olmoe_1b_7b", "configs.phi3_medium_14b",
                  "configs.qwen2_vl_72b", "configs.qwen3_14b",
                  "configs.recurrentgemma_9b",
-                 "configs.seamless_m4t_large_v2"):
+                 "configs.seamless_m4t_large_v2",
+                 "models.moe_a2a", "launch.dryrun", "launch.fit_cell",
+                 "launch.input_specs", "launch.mesh", "sharding.specs",
+                 "sharding.util", "roofline.hlo",
+                 "launch.diagnose_collectives", "examples.quickstart",
+                 "examples.distributed_fit", "examples.probe_server",
+                 "examples.train_lm", "examples.linear_probe"):
         assert f"repro_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
