@@ -1,0 +1,6 @@
+"""Device, averaged over the four ranks: see ``fitbench.layers.idle_pct``."""
+from fitbench import layers
+
+
+def read(ctx):
+    return layers.idle_pct(ctx)
