@@ -39,27 +39,6 @@ class FitResult(NamedTuple):
     problem: str
 
 
-def _flops_per_iter(problem: str, method: str, N: int, mi: int,
-                    n: int) -> float:
-    """Analytic per-iteration FLOP model (the scaling benchmarks' paper-
-    style 'total compute time' at core counts that are not emulated)."""
-    m = N * mi
-    if method == "transpose":
-        # d = D^T(y-lam): 2mn; Dx: 2mn; solve: 2n^2; prox: ~10m.
-        return 4.0 * m * n + 2.0 * n * n + 10.0 * m
-    # consensus per outer iter: inner solver dominated.
-    if problem == "lasso":
-        # cached factor solve per node: 2n^2 + 2 m_i n for rhs
-        return N * (2.0 * n * n) + 2.0 * m * n
-    if problem in ("logistic", "sparse_logistic"):
-        # Newton: per inner iter H build = m_i n^2, solve n^3/3; ~8 inner
-        return 8.0 * (m * n * n + N * n**3 / 3.0)
-    if problem == "svm":
-        # CD pass: O(m_i n) per pass * passes(4) + greedy grad O(m_i n)
-        return 8.0 * m * n
-    raise ValueError(problem)
-
-
 def _on(a, dev: torch.device):
     """Arrays and tensors onto the fit's device; other values as given."""
     return on_device(a, dev) if isinstance(a, (np.ndarray, Tensor)) else a

@@ -14,9 +14,11 @@ warm-start d) and ``sweep(x, k)`` (one fused pass, returning a
 Small hooks split checkpoint ownership: the backend owns the SHAPES of
 its state, the driver the CADENCE (every ``checkpoint_every``
 iterations through :class:`~repro_torch.checkpoint.CheckpointManager`) and
-the resume validation. The driver also owns the obs spans and the
+the resume validation. ``solve_with_executor`` also owns the
 per-iteration telemetry (:mod:`repro_torch.obs`), stamped with the
-executor's name and backend.
+executor's name and backend, and the loop's spans; the executors open
+theirs below it in the process's current
+:class:`~repro_torch.obs.Observability`.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import torch
 
 from repro_torch.core import gram as gram_lib
 from repro_torch.engine.streaming import SweepResult
-from repro_torch.obs import NOOP
+from repro_torch.obs import current
 
 Tensor = torch.Tensor
 
@@ -213,15 +215,23 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
 
     The per-iteration scalars reach the host in ONE transfer: the norms
     are taken on the device and stacked, then ``.tolist()`` syncs once.
-    ``obs`` (an enabled :class:`repro_torch.obs.Observability`) adds the
-    reference's spans (``gram_setup``, ``init_from_x0``, ``x_solve``,
-    ``sweep``), latency histograms and one telemetry record per iteration,
-    all read from that same transfer: no extra device work, no extra sync.
-    On the card a span ends where its host code ends, so ``x_solve`` times
-    the launches of the x-update, not its kernels (PERF.md, section 3)."""
+    ``obs`` (an enabled :class:`repro_torch.obs.Observability`; without
+    one, the process's current one, ``repro_torch.obs.current()``) adds
+    spans, latency histograms and one telemetry record per iteration, all
+    read from that same transfer: no extra device work, no extra sync. The
+    spans are ``gram_setup`` and ``init_from_x0`` once, and per iteration
+    ``k`` ``iterate`` around the whole of it, ``x_solve``, ``sweep`` and
+    ``host_sync`` (the one transfer); the executors add ``stop_terms`` and
+    ``exchange`` inside ``sweep``. A span ends where its host code ends, so
+    its own length is that of the launches, not of their kernels. The
+    device time under a span is read from ``torch.profiler`` over the
+    same clock: each kernel belongs to the span that was innermost when
+    its launch call ran, found by the launch's correlation id
+    (``fitbench/progspans.py``)."""
     from repro_torch.core.unwrapped import ADMMHistory, ADMMResult
 
-    obs = obs if obs is not None else NOOP
+    obs = obs if obs is not None else current()
+    span = obs.tracer.iter_span
     m, n, K = ex.m, ex.n, ex.ycols
     m_eff, n_eff = m * K, n * K
 
@@ -266,68 +276,72 @@ def solve_with_executor(ex: SolveExecutor, *, loss, tau: float,
     k_conv = -1
     while k < max_iters:
         t_it = time.perf_counter()
-        with obs.span("x_solve", k=k + 1):
-            if reg is None:
-                x = gram_lib.gram_solve(L, d)
-            else:
-                x = composite_x_update(G, lmax, d, x, tau, reg.prox,
-                                       reg.inner_iters)
-        t_sw = time.perf_counter()
-        with obs.span("sweep", k=k + 1):
-            sw = ex.sweep(x, k + 1)
-        sweep_s = time.perf_counter() - t_sw
-        if sw is None:           # degraded stop: best-so-far x
-            break
-        d = sw.d
-        parts = [torch.sqrt(sw.r_sq), torch.linalg.norm(sw.w),
-                 torch.sqrt(sw.dx_sq), torch.sqrt(sw.y_sq),
-                 torch.linalg.norm(sw.v), sw.obj]
-        if rho:
-            parts.append(torch.sum(x ** 2))
-        if reg is not None:
-            parts.append(reg.value(x))
-        vals = torch.stack([p.to(torch.float64) for p in parts]).tolist()
-        r = vals[0]
-        s = tau * vals[1]
-        eps_pri = math.sqrt(m_eff) * eps_abs + eps_rel * max(vals[2],
-                                                             vals[3])
-        eps_dual = math.sqrt(n_eff) * eps_abs + eps_rel * tau * vals[4]
-        k += 1
-        if record or obs.enabled:
-            obj = vals[5] - pad_obj
+        with span("iterate", k + 1):
+            with span("x_solve", k + 1):
+                if reg is None:
+                    x = gram_lib.gram_solve(L, d)
+                else:
+                    x = composite_x_update(G, lmax, d, x, tau, reg.prox,
+                                           reg.inner_iters)
+            t_sw = time.perf_counter()
+            with span("sweep", k + 1):
+                sw = ex.sweep(x, k + 1)
+            sweep_s = time.perf_counter() - t_sw
+            if sw is None:           # degraded stop: best-so-far x
+                break
+            d = sw.d
+            parts = [torch.sqrt(sw.r_sq), torch.linalg.norm(sw.w),
+                     torch.sqrt(sw.dx_sq), torch.sqrt(sw.y_sq),
+                     torch.linalg.norm(sw.v), sw.obj]
             if rho:
-                obj += 0.5 * rho * vals[6]
+                parts.append(torch.sum(x ** 2))
             if reg is not None:
-                obj += vals[-1]
-            if record:
-                objs.append(obj)
-                rs.append(r)
-                ss.append(s)
-            if obs.enabled:
-                dt = time.perf_counter() - t_it
-                obs.observe(f"{ex.name}.sweep_s", sweep_s)
-                obs.observe(f"{ex.name}.iter_s", dt)
-                obs.record(iter=k, objective=obj, primal_res=r,
-                           dual_res=s, eps_pri=float(eps_pri),
-                           eps_dual=float(eps_dual), tau=tau, rho=rho,
-                           iter_s=round(dt, 6),
-                           sweep_s=round(sweep_s, 6),
-                           executor=ex.name, backend=ex.backend,
-                           **ex.extra_record())
-        if manager is not None and checkpoint_every \
-                and k % checkpoint_every == 0:
-            state = ex.state_arrays(k)
-            if state is not None:
-                if ex.writes_checkpoint:
-                    manager.save(k, {"x": x, "y": state["y"],
-                                     "lam": state["lam"], "d": d},
-                                 extra={"kind": ex.checkpoint_kind,
-                                        "iter": k,
-                                        **ex.checkpoint_extra()})
-                ex.on_checkpointed(k, state)
-        if r <= eps_pri and s <= eps_dual:
-            k_conv = k - 1
-            break
+                parts.append(reg.value(x))
+            stacked = torch.stack([p.to(torch.float64) for p in parts])
+            with span("host_sync", k + 1):
+                vals = stacked.tolist()
+            r = vals[0]
+            s = tau * vals[1]
+            eps_pri = math.sqrt(m_eff) * eps_abs + eps_rel * max(vals[2],
+                                                                 vals[3])
+            eps_dual = math.sqrt(n_eff) * eps_abs + eps_rel * tau * vals[4]
+            k += 1
+            if record or obs.enabled:
+                obj = vals[5] - pad_obj
+                if rho:
+                    obj += 0.5 * rho * vals[6]
+                if reg is not None:
+                    obj += vals[-1]
+                if record:
+                    objs.append(obj)
+                    rs.append(r)
+                    ss.append(s)
+                if obs.enabled:
+                    dt = time.perf_counter() - t_it
+                    obs.observe(f"{ex.name}.sweep_s", sweep_s)
+                    obs.observe(f"{ex.name}.iter_s", dt)
+                    if obs.telemetry is not None:
+                        obs.record(iter=k, objective=obj, primal_res=r,
+                                   dual_res=s, eps_pri=float(eps_pri),
+                                   eps_dual=float(eps_dual), tau=tau,
+                                   rho=rho, iter_s=round(dt, 6),
+                                   sweep_s=round(sweep_s, 6),
+                                   executor=ex.name, backend=ex.backend,
+                                   **ex.extra_record())
+            if manager is not None and checkpoint_every \
+                    and k % checkpoint_every == 0:
+                state = ex.state_arrays(k)
+                if state is not None:
+                    if ex.writes_checkpoint:
+                        manager.save(k, {"x": x, "y": state["y"],
+                                         "lam": state["lam"], "d": d},
+                                     extra={"kind": ex.checkpoint_kind,
+                                            "iter": k,
+                                            **ex.checkpoint_extra()})
+                    ex.on_checkpointed(k, state)
+            if r <= eps_pri and s <= eps_dual:
+                k_conv = k - 1
+                break
 
     ex.finish(k, k_conv >= 0)
     history = None

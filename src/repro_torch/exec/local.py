@@ -13,6 +13,7 @@ from repro_torch.data.sparse import BlockCSR
 from repro_torch.engine.engine import reject_sparse
 from repro_torch.engine.streaming import SweepResult
 from repro_torch.exec.base import SolveExecutor
+from repro_torch.obs import current
 
 Tensor = torch.Tensor
 
@@ -96,11 +97,14 @@ class LocalExecutor(SolveExecutor):
 def fused_step(engine, D, aux, y, lam, x):
     """``(D, aux, y, lam, x) -> (y', lam', SweepResult)``: the engine's
     fused body followed by the stopping-rule scalars (all on the device;
-    the driver brings them to the host in one transfer)."""
+    ``solve_with_executor`` brings them to the host in one transfer).
+    The scalars' passes over the m-vectors open the span ``stop_terms``
+    in the process's current :class:`~repro_torch.obs.Observability`."""
     st = engine.iterate(D, aux, y, lam, x, want_dual=True)
-    Dx = st.lam - lam + st.y
-    sw = SweepResult(
-        st.d, st.w, st.v,
-        torch.sum((st.lam - lam) ** 2), torch.sum(Dx * Dx),
-        torch.sum(st.y * st.y), engine.loss.value(Dx, aux))
+    with current().tracer.iter_span("stop_terms"):
+        Dx = st.lam - lam + st.y
+        sw = SweepResult(
+            st.d, st.w, st.v,
+            torch.sum((st.lam - lam) ** 2), torch.sum(Dx * Dx),
+            torch.sum(st.y * st.y), engine.loss.value(Dx, aux))
     return st.y, st.lam, sw

@@ -39,6 +39,7 @@ from repro_torch.device import on_device
 from repro_torch.engine.streaming import SweepResult
 from repro_torch.exec.base import SolveExecutor
 from repro_torch.exec.local import fused_step
+from repro_torch.obs import current
 from repro_torch.sharding.compat import (
     SOLO,
     Group,
@@ -124,17 +125,18 @@ class ShardMapExecutor(SolveExecutor):
 
     def reduce(self, sw: SweepResult) -> SweepResult:
         """This rank's sweep partials summed over the ranks: the one
-        collective of an iteration (two with ``compress``)."""
+        collective of an iteration (two with ``compress``), under the span
+        ``exchange`` in the process's current
+        :class:`~repro_torch.obs.Observability`."""
         scalars = torch.stack([sw.r_sq, sw.dx_sq, sw.y_sq, sw.obj]
                               ).to(self.acc)
-        if self.compress:
-            d, self._err = compressed_allreduce(sw.d, self._err, self.group)
-            vecs = [sw.w, sw.v]
-        else:
-            vecs = [sw.d, sw.w, sw.v]
-        total = ordered_allreduce(
-            torch.cat([t.reshape(-1) for t in vecs] + [scalars]),
-            self.group)
+        vecs = [sw.w, sw.v] if self.compress else [sw.d, sw.w, sw.v]
+        packed = torch.cat([t.reshape(-1) for t in vecs] + [scalars])
+        with current().tracer.iter_span("exchange"):
+            if self.compress:
+                d, self._err = compressed_allreduce(sw.d, self._err,
+                                                    self.group)
+            total = ordered_allreduce(packed, self.group)
         shape = sw.d.shape
         parts = [p.reshape(shape) for p in
                  total[:-4].split(sw.d.numel())]

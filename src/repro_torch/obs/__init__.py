@@ -19,12 +19,21 @@ An enabled instance owns a run directory and writes three artifacts:
 ``launch/obs_report.py`` reads the directory back and prints the
 summary (percentiles, bytes/iter, span hotspots).
 
+``current()`` is the process's current instance: ``NOOP`` unless a
+``recording(ob)`` block has set one. Code that takes no ``obs`` argument
+(``solve_with_executor`` called without one, and the executors below it)
+opens its spans there, so a caller that holds none of those objects,
+such as a benchmark around a whole fit, switches them on for its block.
+It is process-wide, not per thread or per context, so spans from every
+thread of the process are recorded.
+
 Copy of ``repro/obs/__init__.py``: the port imports nothing of the JAX
 package.
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import os
 import signal
@@ -187,3 +196,24 @@ class Observability:
 
 
 NOOP = Observability(dir=None, enabled=False)
+
+
+_current = NOOP
+
+
+def current() -> Observability:
+    """The process's current :class:`Observability`: the one a
+    ``recording`` block has set, else ``NOOP``."""
+    return _current
+
+
+@contextlib.contextmanager
+def recording(ob: Observability):
+    """Make ``ob`` the process's current :class:`Observability` for the
+    block, and restore the one before it on exit."""
+    global _current
+    prev, _current = _current, ob
+    try:
+        yield ob
+    finally:
+        _current = prev

@@ -8,14 +8,25 @@ each exporting its own event list — merges into ONE timeline: load the
 exported JSON in ``chrome://tracing`` or https://ui.perfetto.dev and
 every process renders as its own track.
 
-Clock contract: event timestamps (``ts``) are wall-clock microseconds
-(``time.time_ns``), the one clock processes on a host share, so merged
-cross-process events align; durations (``dur``) come from
-``time.perf_counter`` for sub-microsecond resolution within a span.
+Clock contract: one clock, ``time.time_ns`` (Unix time), the one clock
+the processes of a host share and the one ``torch.profiler``'s host and
+device events are stamped on, so merged cross-process events align and a
+span can be laid over the profiler's timeline. ``ts`` is the start in
+whole microseconds (the Chrome-trace unit), ``ts_ns`` the same start in
+nanoseconds, and ``dur`` the length in microseconds from the two
+nanosecond readings.
 
 Disabled fast path: ``span`` on a disabled tracer returns a reused no-op
 context manager — no event dict, no timestamp read, no allocation — so
 instrumented code costs one attribute check when observability is off.
+``iter_span(name, k)`` is the solve loop's form: its arguments are
+positional, so the disabled path builds no keyword dict either. A span
+opened without ``k`` takes the iteration of the last ``iter_span`` that
+named one on its thread, so code below the solve loop stamps the loop's
+iteration without being handed it. Loop spans are kept as tuples and
+become event dicts only when ``events()`` is read, and they join no
+request's trace tree (no context push): a solve opens several an
+iteration, and the loop between the device's kernels is what they time.
 
 Trace-context integration (DESIGN.md §16): when a request-scoped
 :class:`~repro_torch.obs.context.TraceContext` is active (contextvar), each
@@ -57,8 +68,7 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_tracer", "_name", "_attrs", "_t0_us", "_t0", "_ctx",
-                 "_cm")
+    __slots__ = ("_tracer", "_name", "_attrs", "_t0", "_ctx", "_cm")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -77,12 +87,11 @@ class _Span:
         else:
             self._ctx = None
             self._cm = None
-        self._t0_us = time.time_ns() // 1000
-        self._t0 = time.perf_counter()
+        self._t0 = time.time_ns()
         return self
 
     def __exit__(self, *exc):
-        dur_us = (time.perf_counter() - self._t0) * 1e6
+        t1 = time.time_ns()
         if self._cm is not None:
             self._cm.__exit__(None, None, None)
         attrs = self._attrs
@@ -92,13 +101,36 @@ class _Span:
             attrs["span_id"] = self._ctx.span_id
             if self._ctx.parent_id is not None:
                 attrs["parent_id"] = self._ctx.parent_id
-        self._tracer._emit(self._name, self._t0_us, dur_us, attrs)
+        self._tracer._emit(self._name, self._t0, t1, attrs)
         return False
 
     @property
     def context(self) -> Optional[TraceContext]:
         """The child TraceContext this span pushed (None untraced)."""
         return self._ctx
+
+
+class _IterSpan:
+    __slots__ = ("_tracer", "_name", "_k", "_t0")
+
+    def __init__(self, tracer: "Tracer", name: str, k):
+        self._tracer = tracer
+        self._name = name
+        self._k = k
+
+    def __enter__(self):
+        self._t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        tracer = self._tracer
+        tid = threading.get_ident()
+        if tid not in tracer._named_tids:
+            with tracer._lock:
+                tracer._maybe_name_thread(tid)
+        tracer._loop.append((self._name, self._t0, t1, tid, self._k))
+        return False
 
 
 class Tracer:
@@ -109,6 +141,8 @@ class Tracer:
         self._events: List[dict] = []
         self._pid = os.getpid()
         self._named_tids: set = set()
+        self._iter = threading.local()     # the thread's iteration
+        self._loop: list = []              # iter_span records, as tuples
         if process_name and self.enabled:
             self.set_process_name(process_name)
 
@@ -123,6 +157,18 @@ class Tracer:
         if not self.enabled:
             return _NULL_SPAN
         return _Span(self, name, attrs)
+
+    def iter_span(self, name: str, k: Optional[int] = None):
+        """A span of the solve loop's iteration ``k`` (``args`` {"k": k});
+        without ``k``, the iteration of this thread's last ``iter_span``
+        that named one."""
+        if not self.enabled:
+            return _NULL_SPAN
+        if k is None:
+            k = getattr(self._iter, "k", None)
+        else:
+            self._iter.k = k
+        return _IterSpan(self, name, k)
 
     def traced(self, name: Optional[str] = None):
         def deco(fn):
@@ -158,7 +204,9 @@ class Tracer:
             attrs["span_id"] = node.span_id
             if node.parent_id is not None:
                 attrs["parent_id"] = node.parent_id
-        self._emit(name, int(t0_us), max(dur_s, 0.0) * 1e6, attrs)
+        t0_ns = int(t0_us) * 1000
+        self._emit(name, t0_ns, t0_ns + round(max(dur_s, 0.0) * 1e9),
+                   attrs)
 
     def instant(self, name: str, **attrs):
         if not self.enabled:
@@ -172,10 +220,11 @@ class Tracer:
             self._maybe_name_thread(tid)
             self._events.append(ev)
 
-    def _emit(self, name: str, t0_us: int, dur_us: float, attrs: dict):
+    def _emit(self, name: str, t0_ns: int, t1_ns: int, attrs: dict):
         tid = threading.get_ident()
-        ev = {"ph": "X", "name": name, "ts": t0_us,
-              "dur": round(dur_us, 3), "pid": self._pid, "tid": tid}
+        ev = {"ph": "X", "name": name, "ts": t0_ns // 1000,
+              "ts_ns": t0_ns, "dur": (t1_ns - t0_ns) / 1000,
+              "pid": self._pid, "tid": tid}
         if attrs:
             ev["args"] = attrs
         with self._lock:
@@ -210,7 +259,13 @@ class Tracer:
 
     def events(self) -> List[dict]:
         with self._lock:
-            return list(self._events)
+            out = list(self._events)
+        pid = self._pid
+        out += [{"ph": "X", "name": name, "ts": t0 // 1000, "ts_ns": t0,
+                 "dur": (t1 - t0) / 1000, "pid": pid, "tid": tid,
+                 "args": {"k": k}}
+                for name, t0, t1, tid, k in list(self._loop)]
+        return out
 
     def export(self, path: str):
         with open(path, "w") as f:

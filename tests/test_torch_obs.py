@@ -24,18 +24,23 @@ from repro_torch.core.prox import StackedProx, make_l1, make_least_squares
 from repro_torch.core.unwrapped import UnwrappedADMM
 from repro_torch.obs import (
     METRICS_FILE,
+    NOOP,
     TELEMETRY_FILE,
     TRACE_FILE,
     Histogram,
     MetricsRegistry,
     Observability,
     Tracer,
+    current,
     jsonable,
     load_trace,
     read_jsonl,
+    recording,
     span_hotspots,
     summarize_histogram,
 )
+from repro_torch.sharding import compat
+from obs_ranks import traced_shard_solve
 
 jax.config.update("jax_platform_name", "cpu")
 torch.set_num_threads(1)
@@ -291,3 +296,106 @@ def test_obs_disabled_run_identical(tmp_path):
     assert len(recs) == s1.iters
     assert {"iter", "objective", "primal_res", "dual_res", "eps_pri",
             "eps_dual", "iter_s", "sweep_s", "backend"} <= set(recs[0])
+
+
+# -- the fit loop's spans ----------------------------------------------------
+
+LOOP_SPANS = ("iterate", "x_solve", "sweep", "stop_terms", "host_sync")
+
+
+def test_disabled_span_is_the_shared_null_object():
+    """Off, a span is one attribute read: the same null object every
+    time, with no event and no allocation of its own."""
+    from repro_torch.obs.trace import _NULL_SPAN
+    assert NOOP.span("x_solve", k=1) is _NULL_SPAN
+    assert NOOP.tracer.iter_span("x_solve", 1) is _NULL_SPAN
+    assert NOOP.tracer.iter_span("stop_terms") is _NULL_SPAN
+    assert NOOP.tracer.events() == []
+
+
+def test_recording_sets_and_restores_the_current_observability():
+    assert current() is NOOP
+    outer, inner = Observability(enabled=True), Observability(enabled=True)
+    with recording(outer):
+        assert current() is outer
+        with recording(inner):
+            assert current() is inner
+        assert current() is outer
+    assert current() is NOOP
+    try:
+        with recording(outer):
+            raise KeyError("x")
+    except KeyError:
+        pass
+    assert current() is NOOP
+
+
+def test_span_encloses_the_profilers_event():
+    """A span and the profiler share one clock: the profiler's event for
+    the op the span wraps lies inside the span's nanosecond interval."""
+    from torch.profiler import ProfilerActivity, profile
+    tr = Tracer(enabled=True)
+    a, b = torch.ones(256), torch.ones(256)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for k in range(20):
+            with tr.iter_span("add", k):
+                torch.add(a, b)
+    spans = [e for e in tr.events() if e.get("ph") == "X"]
+    adds = sorted((e.start_ns(), e.end_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.name() == "aten::add")
+    assert len(spans) == len(adds) == 20
+    for e, (a0, a1) in zip(sorted(spans, key=lambda e: e["ts_ns"]), adds):
+        assert e["ts"] == e["ts_ns"] // 1000
+        assert e["ts_ns"] <= a0 and a1 <= e["ts_ns"] + e["dur"] * 1000
+
+
+def test_iter_span_stamps_the_loop_iteration():
+    """Spans opened without ``k`` below the solve loop take the iteration
+    the loop's last span named on their thread."""
+    tr = Tracer(enabled=True)
+    for k in (1, 2):
+        with tr.iter_span("iterate", k):
+            with tr.iter_span("stop_terms"):
+                pass
+    got = [(e["name"], e["args"]["k"]) for e in tr.events()
+           if e.get("ph") == "X"]
+    assert sorted(got) == [("iterate", 1), ("iterate", 2),
+                           ("stop_terms", 1), ("stop_terms", 2)]
+
+
+def test_solve_under_recording_spans_each_iteration_once():
+    """``UnwrappedADMM.solve`` with no ``obs``, inside ``recording``: one
+    of each loop span per iteration, each stamped with its iteration, and
+    an answer bitwise equal to the untraced solve's."""
+    D_hat, aux, mu, m, n = _lasso_inputs(7, 2, 60)
+    _, solver = _solver_pair(mu, m, n)
+    plain = solver.solve(D_hat, aux, max_iters=12)
+    ob = Observability(enabled=True)
+    with recording(ob):
+        traced = solver.solve(D_hat, aux, max_iters=12)
+    assert torch.equal(plain.x, traced.x) and plain.iters == traced.iters
+    xs = [e for e in ob.tracer.events() if e.get("ph") == "X"]
+    for name in LOOP_SPANS:
+        ks = sorted(e["args"]["k"] for e in xs if e["name"] == name)
+        assert ks == list(range(1, traced.iters + 1)), name
+    assert [e["name"] for e in xs if e["name"] not in LOOP_SPANS] \
+        == ["gram_setup"]
+    assert not any(e["name"] == "exchange" for e in xs)
+
+
+def test_shard_map_under_recording_spans_each_iteration_once():
+    """``ShardMapExecutor`` on a gloo world of 2 inside ``recording``: the
+    loop spans and one ``exchange`` per iteration on every rank, and each
+    rank's x bitwise equal to its untraced solve's."""
+    rng = np.random.default_rng(3)
+    D = rng.standard_normal((400, 12)).astype(np.float32)
+    labels = np.sign(rng.standard_normal(400)).astype(np.float32)
+    out = compat.spawn(traced_shard_solve, 2, "gloo",
+                       args=(D, labels, 15), device="cpu", threads=1,
+                       timeout=300)
+    for r in out:
+        assert np.array_equal(r["x0"], r["x1"])
+        for name in LOOP_SPANS + ("exchange",):
+            assert r["counts"][name] == r["iters"], name
+        assert r["counts"]["gram_setup"] == 1
