@@ -71,13 +71,32 @@ class EngineStep(NamedTuple):
     """One fused iteration: updated iterates plus the n-vector reductions
     accumulated in the same pass over D. The w/v differences are formed
     row-wise BEFORE reducing (differencing accumulated D^T y across
-    iterations cancels catastrophically near convergence)."""
+    iterations cancels catastrophically near convergence).
+
+    ``stats`` is the stopping rule's four sums over the rows when the body
+    formed them in the same pass (the cuda body: K3 emits them), in the
+    order (r_sq, dx_sq, y_sq, obj) with Dx' = (lam' - lam) + y':
+    ||lam' - lam||^2, ||Dx'||^2, ||y'||^2 and f(Dx'). Every other body
+    leaves it None, and its caller forms them from the iterates."""
 
     y: Tensor            # y^{k+1} = prox_f(Dx + lam)
     lam: Tensor          # lam^{k+1} = lam + Dx - y^{k+1}
     d: Tensor            # D^T(y^{k+1} - lam^{k+1}) — next x-update RHS
     w: Optional[Tensor]  # D^T(y^{k+1} - y^k) — Boyd dual residual
     v: Optional[Tensor]  # D^T lam^{k+1} — dual tolerance
+    stats: Optional[Tensor] = None   # (4,): r_sq, dx_sq, y_sq, obj
+
+
+def stop_sums(st: EngineStep, lam: Tensor, aux: Optional[Tensor],
+              loss: ProxLoss) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The stopping rule's four sums of one fused step, (r_sq, dx_sq, y_sq,
+    obj) with Dx = (lam' - lam) + y': the body's own (``st.stats``) where
+    it emitted them, else torch passes over the m-vectors."""
+    if st.stats is not None:
+        return st.stats.unbind(0)
+    Dx = st.lam - lam + st.y
+    return (torch.sum((st.lam - lam) ** 2), torch.sum(Dx * Dx),
+            torch.sum(st.y * st.y), loss.value(Dx, aux))
 
 
 def default_backend(device) -> str:
@@ -321,12 +340,16 @@ class IterationEngine:
                           v if want_dual else None)
 
     def _iterate_cuda(self, D, aux, y, lam, x, want_dual):
-        y_new, lam_new, d, w, v = iter_ops.admm_iter_full(
+        # a loss that folds a weight s into its prox (f = s f_bare, so
+        # prox_f(z, d) = prox_{f_bare}(z, s d)) scales its value by the same
+        # s: kernel_delta_scale is also the scale of the kernel's obj
+        y_new, lam_new, d, w, v, stats = iter_ops.admm_iter_full(
             D, aux, y, lam, x, kind=self.loss.name,
             delta=self.loss.kernel_delta_scale * self.delta,
-            param=self.loss.kernel_param)
+            param=self.loss.kernel_param,
+            scale=self.loss.kernel_delta_scale)
         return EngineStep(y_new, lam_new, d, w if want_dual else None,
-                          v if want_dual else None)
+                          v if want_dual else None, stats)
 
     def _iterate_sparse(self, D: BlockCSR, aux, y, lam, x, want_dual):
         """O(nnz) fused body: K6 where the dense path would take the cuda

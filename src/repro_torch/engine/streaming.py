@@ -63,6 +63,7 @@ import torch
 
 from repro_torch.core import gram as gram_lib
 from repro_torch.data.store import ShardedMatrixStore
+from repro_torch.engine.engine import stop_sums
 
 Tensor = torch.Tensor
 
@@ -144,13 +145,11 @@ def _block_fns(engine, has_aux: bool, want_dual: bool = True,
                             want_dual=want_dual)
         if not want_dual:
             return st.y, st.lam, acc._replace(d=acc.d + st.d)
-        Dx = st.lam - lam_b + st.y
-        obj = engine.loss.value(Dx, aux_b if has_aux else None)
+        r_sq, dx_sq, y_sq, obj = stop_sums(
+            st, lam_b, aux_b if has_aux else None, engine.loss)
         new = SweepResult(
-            acc.d + st.d, acc.w + st.w, acc.v + st.v,
-            acc.r_sq + torch.sum((st.lam - lam_b) ** 2),
-            acc.dx_sq + torch.sum(Dx * Dx),
-            acc.y_sq + torch.sum(st.y * st.y), acc.obj + obj)
+            acc.d + st.d, acc.w + st.w, acc.v + st.v, acc.r_sq + r_sq,
+            acc.dx_sq + dx_sq, acc.y_sq + y_sq, acc.obj + obj)
         return st.y, st.lam, new
 
     def init(D_b, x0):

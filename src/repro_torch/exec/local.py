@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.core import gram as gram_lib
 from repro_torch.data.sparse import BlockCSR
-from repro_torch.engine.engine import reject_sparse
+from repro_torch.engine.engine import reject_sparse, stop_sums
 from repro_torch.engine.streaming import SweepResult
 from repro_torch.exec.base import SolveExecutor
 from repro_torch.obs import current
@@ -96,15 +96,22 @@ class LocalExecutor(SolveExecutor):
 
 def fused_step(engine, D, aux, y, lam, x):
     """``(D, aux, y, lam, x) -> (y', lam', SweepResult)``: the engine's
-    fused body followed by the stopping-rule scalars (all on the device;
+    fused body and the stopping-rule scalars (all on the device;
     ``solve_with_executor`` brings them to the host in one transfer).
-    The scalars' passes over the m-vectors open the span ``stop_terms``
-    in the process's current :class:`~repro_torch.obs.Observability`."""
+
+    The scalars are (r_sq, dx_sq, y_sq, obj) with Dx = (lam' - lam) + y':
+    ||lam' - lam||^2, ||Dx||^2, ||y'||^2 and f(Dx). Where the body emitted
+    them (``EngineStep.stats``: K3 on the card) they are taken as they
+    are; else they are four passes over the m-vectors here
+    (:func:`~repro_torch.engine.engine.stop_sums`). Either way they are
+    formed in the span ``stop_terms`` of the process's current
+    :class:`~repro_torch.obs.Observability`, which counts one
+    ``stop_terms.fused`` or ``stop_terms.torch``."""
     st = engine.iterate(D, aux, y, lam, x, want_dual=True)
-    with current().tracer.iter_span("stop_terms"):
-        Dx = st.lam - lam + st.y
-        sw = SweepResult(
-            st.d, st.w, st.v,
-            torch.sum((st.lam - lam) ** 2), torch.sum(Dx * Dx),
-            torch.sum(st.y * st.y), engine.loss.value(Dx, aux))
+    ob = current()
+    with ob.tracer.iter_span("stop_terms"):
+        ob.inc("stop_terms.torch" if st.stats is None
+               else "stop_terms.fused")
+        sw = SweepResult(st.d, st.w, st.v,
+                         *stop_sums(st, lam, aux, engine.loss))
     return st.y, st.lam, sw

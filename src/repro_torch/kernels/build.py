@@ -43,9 +43,10 @@ SIGNATURES = {
     "repro_gram": (_P, _I, _P, _LL, _I, _I, _I, _LL, _I, _P, _P, _P, _P,
                    _I, _I, _P),
     "repro_admm_iter": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
-                        _LL, _I, _I, _F, _F, _P),
+                        _LL, _I, _I, _F, _F, _F, _P),
     "repro_admm_iter_ring": (_P, _I) + (_P,) * 8 + (_LL, _I, _LL, _I, _I,
-                                                      _I, _I, _I, _F, _F, _P),
+                                                      _I, _I, _I, _F, _F, _F,
+                                                      _P),
     "repro_flash_attn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I)
     + (_LL,) * 12 + (_F, _I, _P),
     "repro_flash_attn_tc": (_P,) * 4 + (_I,) * 6 + (_LL,) * 12 + (_F, _I, _P),

@@ -1,6 +1,12 @@
 // K3: one fused unwrapped-ADMM iteration over D (paper Alg. 2 lines 5-8):
 //   Dx = D x;  y' = prox_f(Dx + lam);  lam' = lam + Dx - y';
-//   d = D^T (y' - lam'),  w = D^T (y' - y),  v = D^T lam'.
+//   d = D^T (y' - lam'),  w = D^T (y' - y),  v = D^T lam';
+// and the stopping rule's four sums over the rows, from the same registers
+// (Dx' = (lam' - lam) + y', the quantity every other path forms):
+//   r_sq = sum (lam' - lam)^2,  dx_sq = sum Dx'^2,  y_sq = sum y'^2,
+//   obj = scale * sum f(Dx')    (prox.cuh::value_body; scale is hinge's C,
+//                                l1's mu, else 1).
+// out is (3n + 4,): d, w, v, then r_sq, dx_sq, y_sq, obj.
 //
 // Replaces repro/kernels/admm_iter/admm_iter.py::admm_iter_pallas
 // (`_kernel`), whose prox is repro/kernels/prox/prox.py::_prox_body
@@ -50,15 +56,19 @@
 //         rows at a time come from the warp's slot in shared memory by
 //         16-byte broadcast loads. A per-panel partial first, then a
 //         Kahan-compensated running sum;
+//   * the lane that runs a row's prox also adds the row's four stopping
+//     terms to its own Kahan-compensated running sums (stop_terms);
 //   * at the end the warps' accumulators are summed in warp order into the
-//     CTA's (3, n) partial.
+//     CTA's (3n + 4) partial, each warp's four sums first reduced by a
+//     fixed shuffle tree.
 // Wide route (admm_iter_kernel; any n up to ~11k): each CTA of 256 threads
 // stages R <= 32 rows at a time synchronously (upcast on the way in), a
 // warp per row for Dx with a butterfly shuffle, warp 0's lanes for the
-// prox, and thread t owns columns t, t + 256, ... of the sweep. Shared
-// memory is (R n + 4 n + 128) floats, so n up to ~11k fits at R = 1.
+// prox and the stopping terms, and thread t owns columns t, t + 256, ... of
+// the sweep. Shared memory is (R n + 4 n + 128) floats, so n up to ~11k
+// fits at R = 1.
 // Both routes end in admm_reduce_kernel, which sums the CTA partials in CTA
-// order. No atomics: bitwise repeatable for given shapes.
+// order and scales obj. No atomics: bitwise repeatable for given shapes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +83,38 @@ constexpr int kWarps = kThreads / 32;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// s + v with the running compensation c (Kahan).
+__device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
+  const float yv = v - c;
+  const float t = s + yv;
+  c = (t - s) - yv;
+  s = t;
+}
+
+// A live row's four stopping terms into a lane's running sums (s, c):
+// (lam' - lam)^2, Dx'^2, y'^2 and f(Dx'), Dx' = (lam' - lam) + y' rounded
+// as the torch expression rounds it (no contraction).
+template <int KIND>
+__device__ __forceinline__ void stop_terms(float (&s)[4], float (&c)[4],
+                                           float yn, float ln, float l,
+                                           float a, float param) {
+  const float r = __fsub_rn(ln, l);
+  const float dxr = __fadd_rn(r, yn);
+  kahan_add(s[0], c[0], r * r);
+  kahan_add(s[1], c[1], dxr * dxr);
+  kahan_add(s[2], c[2], yn * yn);
+  kahan_add(s[3], c[3], repro::value_body<KIND>(dxr, a, param));
+}
+
+// The warp's four sums by a fixed tree; lane 0 holds them.
+__device__ __forceinline__ void warp_sum4(float (&s)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s[j] += __shfl_down_sync(0xffffffffu, s[j], off);
 }
 
 template <typename T, int KIND>
@@ -102,6 +144,7 @@ admm_iter_kernel(const T* __restrict__ D, const float* __restrict__ x,
     acc[2 * n + c] = 0.f;
   }
   __syncthreads();
+  float st[4] = {0.f, 0.f, 0.f, 0.f}, stc[4] = {0.f, 0.f, 0.f, 0.f};
 
   for (long long row0 = r_begin; row0 < r_end; row0 += R) {
     const int cnt = (int)min((long long)R, r_end - row0);
@@ -137,6 +180,7 @@ admm_iter_kernel(const T* __restrict__ D, const float* __restrict__ x,
         u0 = yn - ln;
         u1 = yn - yo;
         u2 = ln;
+        stop_terms<KIND>(st, stc, yn, ln, l, a, param);
       }
       u[lane] = u0;
       u[32 + lane] = u1;
@@ -159,8 +203,13 @@ admm_iter_kernel(const T* __restrict__ D, const float* __restrict__ x,
     __syncthreads();
   }
 
-  float* out = part + (size_t)blockIdx.x * 3 * n;
+  float* out = part + (size_t)blockIdx.x * (3 * n + 4);
   for (int c = tid; c < 3 * n; c += kThreads) out[c] = acc[c];
+  if (warp == 0) {
+    warp_sum4(st);
+    if (lane == 0)
+      for (int j = 0; j < 4; ++j) out[3 * n + j] = st[j];
+  }
 }
 
 // ---------------------------------------------------------------- ring --
@@ -364,6 +413,8 @@ admm_ring_kernel(const T* __restrict__ D, const float* __restrict__ x,
   for (int j = 0; j < 3; ++j)
 #pragma unroll
     for (int k = 0; k < K; ++k) acc[j][k] = comp[j][k] = 0.f;
+  // this lane's rows' stopping terms, Kahan-compensated as well
+  float st[4] = {0.f, 0.f, 0.f, 0.f}, stc[4] = {0.f, 0.f, 0.f, 0.f};
 
   if (warp == warps) {
     // ---- producer: one thread keeps the ring full ----
@@ -435,6 +486,7 @@ admm_ring_kernel(const T* __restrict__ D, const float* __restrict__ x,
         u0 = yn - ln;
         u1 = yn - yo;
         u2 = ln;
+        stop_terms<KIND>(st, stc, yn, ln, l, a, param);
       }
       uw[lane] = u0;
       uw[kRing + lane] = u1;
@@ -473,11 +525,15 @@ admm_ring_kernel(const T* __restrict__ D, const float* __restrict__ x,
       __syncwarp();   // every lane is done with the stage and the weights
       if (lane == 0) mbar_arrive(bar_empty + 8 * s);
     }
+    // the weights' slot is free: it takes the warp's four sums
+    warp_sum4(st);
+    if (lane == 0)
+      for (int j = 0; j < 4; ++j) uw[j] = st[j];
   }
 
   // every panel has been consumed, so no copy is in flight: the ring holds
   // the warps' accumulators (the launcher checks that they fit), summed in
-  // warp order
+  // warp order, as are the warps' four sums
   __syncthreads();
   float* red = reinterpret_cast<float*>(ring);
   if (warp < warps) {
@@ -490,30 +546,40 @@ admm_ring_kernel(const T* __restrict__ D, const float* __restrict__ x,
       }
   }
   __syncthreads();
-  float* out = part + (size_t)blockIdx.x * 3 * n;
+  float* out = part + (size_t)blockIdx.x * (3 * n + 4);
   for (int e = tid; e < 3 * n; e += blockDim.x) {
     float s = 0.f;
     for (int w = 0; w < warps; ++w) s += red[(size_t)w * 3 * n + e];
     out[e] = s;
   }
+  if (tid < 4) {
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) s += wts[w * 3 * kRing + tid];
+    out[3 * n + tid] = s;
+  }
 }
 
+// out[e] = sum over CTAs, in CTA order, of the (nctas, 3n + 4) partials;
+// the last entry, obj, times the loss's outer scale.
 __global__ void admm_reduce_kernel(const float* __restrict__ part, int n,
-                                   int nctas, float* __restrict__ out) {
+                                   int nctas, float scale,
+                                   float* __restrict__ out) {
+  const int len = 3 * n + 4;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= 3 * n) return;
+  if (e >= len) return;
   float s = 0.f;
-  for (int b = 0; b < nctas; ++b) s += part[(size_t)b * 3 * n + e];
-  out[e] = s;
+  for (int b = 0; b < nctas; ++b) s += part[(size_t)b * len + e];
+  out[e] = e == len - 1 ? scale * s : s;
 }
 
-int launch_reduce(const void* part, void* out, int n, int nctas,
+int launch_reduce(const void* part, void* out, int n, int nctas, float scale,
                   cudaStream_t s) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int threads = 256;
-  admm_reduce_kernel<<<(3 * n + threads - 1) / threads, threads, 0, s>>>(
-      static_cast<const float*>(part), n, nctas, static_cast<float*>(out));
+  admm_reduce_kernel<<<(3 * n + 4 + threads - 1) / threads, threads, 0, s>>>(
+      static_cast<const float*>(part), n, nctas, scale,
+      static_cast<float*>(out));
   return cudaGetLastError();
 }
 
@@ -521,7 +587,8 @@ template <typename T, int KIND>
 int launch_iter(const void* D, const void* x, const void* y, const void* lam,
                 const void* aux, void* y_out, void* lam_out, void* part,
                 void* out, long long m, int n, int R, long long rows_per_cta,
-                int nctas, float delta, float param, cudaStream_t s) {
+                int nctas, float delta, float param, float scale,
+                cudaStream_t s) {
   const size_t smem = ((size_t)R * n + 4 * (size_t)n + 128) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       admm_iter_kernel<T, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -533,7 +600,7 @@ int launch_iter(const void* D, const void* x, const void* y, const void* lam,
       static_cast<const float*>(aux), static_cast<float*>(y_out),
       static_cast<float*>(lam_out), static_cast<float*>(part), m, n, R,
       rows_per_cta, delta, param);
-  return launch_reduce(part, out, n, nctas, s);
+  return launch_reduce(part, out, n, nctas, scale, s);
 }
 
 template <typename T, int KIND, int K>
@@ -541,7 +608,7 @@ int launch_ring(const void* D, const void* x, const void* y, const void* lam,
                 const void* aux, void* y_out, void* lam_out, void* part,
                 void* out, long long m, int n, long long rows_per_cta,
                 int rows, int nctas, int stages, int warps, float delta,
-                float param, cudaStream_t s) {
+                float param, float scale, cudaStream_t s) {
   const int smem = ring_fixed_bytes(n, warps) +
                    stages * ring_stage_bytes(n, sizeof(T), rows);
   cudaError_t err = cudaFuncSetAttribute(
@@ -554,7 +621,7 @@ int launch_ring(const void* D, const void* x, const void* y, const void* lam,
       static_cast<const float*>(aux), static_cast<float*>(y_out),
       static_cast<float*>(lam_out), static_cast<float*>(part), m, n,
       rows_per_cta, rows, stages, delta, param);
-  return launch_reduce(part, out, n, nctas, s);
+  return launch_reduce(part, out, n, nctas, scale, s);
 }
 
 // The smallest built column count per lane K >= ceil(n / 32), or 0.
@@ -571,12 +638,13 @@ int dispatch_ring(int K, const void* D, const void* x, const void* y,
                   const void* lam, const void* aux, void* y_out,
                   void* lam_out, void* part, void* out, long long m, int n,
                   long long rows_per_cta, int rows, int nctas, int stages,
-                  int warps, float delta, float param, cudaStream_t s) {
+                  int warps, float delta, float param, float scale,
+                  cudaStream_t s) {
 #define REPRO_RING(KK)                                                       \
   case KK:                                                                   \
     return launch_ring<T, KIND, KK>(D, x, y, lam, aux, y_out, lam_out, part, \
                                     out, m, n, rows_per_cta, rows, nctas,    \
-                                    stages, warps, delta, param, s);
+                                    stages, warps, delta, param, scale, s);
   switch (K) {
     REPRO_RING(2)
     REPRO_RING(4)
@@ -593,7 +661,8 @@ int dispatch_ring(int K, const void* D, const void* x, const void* y,
 
 // Wide route. dtype: 0 = float32 D, 1 = bfloat16 D (row-major (m, n)).
 // x (n,), y, lam, aux (m,) float32; aux may be null. part holds
-// nctas * 3 * n floats and out (3, n) receives d, w, v. Rows
+// nctas * (3n + 4) floats and out (3n + 4,) receives d, w, v, then r_sq,
+// dx_sq, y_sq and obj (the summed loss value times scale). Rows
 // [b * rows_per_cta, (b+1) * rows_per_cta) belong to CTA b, walked in
 // panels of R <= 32 rows.
 extern "C" int repro_admm_iter(const void* D, int dtype, const void* x,
@@ -602,18 +671,18 @@ extern "C" int repro_admm_iter(const void* D, int dtype, const void* x,
                                void* part, void* out, long long m, int n,
                                int R, long long rows_per_cta, int nctas,
                                int kind, float delta, float param,
-                               void* stream) {
+                               float scale, void* stream) {
   if (R < 1 || R > 32 || n <= 0 || nctas <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     REPRO_DISPATCH_KIND(kind, return launch_iter<float, KIND>(
         D, x, y, lam, aux, y_out, lam_out, part, out, m, n, R, rows_per_cta,
-        nctas, delta, param, s));
+        nctas, delta, param, scale, s));
   }
   if (dtype == 1) {
     REPRO_DISPATCH_KIND(kind, return launch_iter<__nv_bfloat16, KIND>(
         D, x, y, lam, aux, y_out, lam_out, part, out, m, n, R, rows_per_cta,
-        nctas, delta, param, s));
+        nctas, delta, param, scale, s));
   }
   return cudaErrorInvalidValue;
 }
@@ -631,7 +700,8 @@ extern "C" int repro_admm_iter_ring(const void* D, int dtype, const void* x,
                                     long long rows_per_cta, int rows,
                                     int nctas, int stages, int warps,
                                     int kind,
-                                    float delta, float param, void* stream) {
+                                    float delta, float param, float scale,
+                                    void* stream) {
   const int K = ring_k(n);
   const int dsize = dtype == 0 ? 4 : 2;
   if (K == 0 || n <= 0 || nctas <= 0 || rows < 1 || rows > kRing ||
@@ -646,10 +716,10 @@ extern "C" int repro_admm_iter_ring(const void* D, int dtype, const void* x,
   if (dtype == 0) {
     REPRO_DISPATCH_KIND(kind, return dispatch_ring<float, KIND>(
         K, D, x, y, lam, aux, y_out, lam_out, part, out, m, n, rows_per_cta,
-        rows, nctas, stages, warps, delta, param, s));
+        rows, nctas, stages, warps, delta, param, scale, s));
   }
   REPRO_DISPATCH_KIND(kind, return dispatch_ring<__nv_bfloat16, KIND>(
       K, D, x, y, lam, aux, y_out, lam_out, part, out, m, n, rows_per_cta,
-      rows, nctas, stages, warps, delta, param, s));
+      rows, nctas, stages, warps, delta, param, scale, s));
   return cudaErrorInvalidValue;
 }

@@ -1,4 +1,5 @@
-// Shared prox body of K1 (prox.cu) and K3 (admm_iter.cu).
+// Shared prox body of K1 (prox.cu) and K3 (admm_iter.cu), and the per-row
+// loss value K3 sums for the stopping rule (value_body).
 //
 // Replaces repro/kernels/prox/prox.py::_prox_body (the Pallas kernels K1
 // and K3 inline the same Python function). One header keeps the two CUDA
@@ -113,6 +114,33 @@ __device__ __forceinline__ float prox_body(float z, float delta, float aux,
                         : (r0 < -delta * (1.f - q) ? r0 + delta * (1.f - q)
                                                    : 0.f);
     return aux + r;
+  }
+}
+
+// One row's loss value f(z), as core/prox.py's `value` computes it, before
+// the outer scale that hinge (C) and l1 (mu) put on their sums: the caller
+// multiplies the summed value by it once.
+//   logistic       softplus(-a z), the input itself above 20 (torch's
+//                  threshold: log1p(e^t) - t < 2.1e-9 there);
+//   hinge          max(0, 1 - a z);
+//   l1             |z|;
+//   least_squares  0.5 (z - a)^2;
+//   quantile       q r if r >= 0 else (q - 1) r, r = z - a.
+template <int KIND>
+__device__ __forceinline__ float value_body(float z, float aux, float param) {
+  if (KIND == kLogistic) {
+    const float t = -aux * z;
+    return t > 20.f ? t : log1pf(expf(t));
+  } else if (KIND == kHinge) {
+    return fmaxf(1.f - aux * z, 0.f);
+  } else if (KIND == kL1) {
+    return fabsf(z);
+  } else if (KIND == kLeastSquares) {
+    const float r = z - aux;
+    return 0.5f * (r * r);
+  } else {  // kQuantile
+    const float r = z - aux;
+    return r >= 0.f ? param * r : (param - 1.f) * r;
   }
 }
 

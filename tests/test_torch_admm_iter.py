@@ -1,7 +1,8 @@
 """Port parity: the fused iteration body (K3's plain version, returning
-y', lam', d, w, v) against the JAX package's ``admm_iter_full`` in
-interpret mode, on a subset of ``tests/test_kernels_admm_iter.py`` CASES
-(y/lam atol 2e-5) plus the kinds that file leaves out.
+y', lam', d, w, v and the four stopping sums) against the JAX package's
+``admm_iter_full`` in interpret mode (the first five), on a subset of
+``tests/test_kernels_admm_iter.py`` CASES (y/lam atol 2e-5) plus the kinds
+that file leaves out.
 """
 import functools
 from types import SimpleNamespace
@@ -75,6 +76,42 @@ def test_admm_iter_full_matches_jax(m, n, dtype, kind, param):
                                    atol=2e-3 * float(np.abs(want).max()))
 
 
+def _loss(kind, param):
+    """The kind's ProxLoss, hinge and l1 with an outer scale != 1."""
+    from repro_torch.core import prox
+    if kind == "hinge":
+        return prox.make_hinge(0.7)
+    if kind == "l1":
+        return prox.make_l1(0.3)
+    if kind == "quantile":
+        return prox.make_quantile(param)
+    return prox.LOSSES[kind]()
+
+
+def _torch_stop_terms(loss, aux, y_new, lam_new, lam):
+    """``exec/local.py::fused_step``'s torch expressions on given iterates,
+    in the order (r_sq, dx_sq, y_sq, obj)."""
+    Dx = lam_new - lam + y_new
+    return torch.stack([torch.sum((lam_new - lam) ** 2), torch.sum(Dx * Dx),
+                        torch.sum(y_new * y_new), loss.value(Dx, aux)])
+
+
+@pytest.mark.parametrize("m,n,dtype,kind,param", CASES)
+def test_plain_stop_sums_match_torch_expressions(m, n, dtype, kind, param):
+    """The plain version's fifth output, (r_sq, dx_sq, y_sq, obj), equals
+    the stopping rule's torch expressions on its own y' and lam', obj
+    scaled by the loss's outer weight (hinge's C, l1's mu)."""
+    _, t = _state(m, n, dtype, jax_side=False)
+    D, aux, y, lam, x = t
+    a = None if kind == "l1" else aux
+    loss = _loss(kind, param)
+    out = tops.admm_iter_full(D, a, y, lam, x, kind=kind, delta=2.0,
+                              param=param, scale=loss.kernel_delta_scale)
+    assert len(out) == 6 and out[5].shape == (4,)
+    want = _torch_stop_terms(loss, a, out[0], out[1], lam)
+    np.testing.assert_allclose(out[5].numpy(), want.numpy(), rtol=1e-6)
+
+
 @pytest.mark.parametrize("kind", ["logistic", "hinge"])
 def test_admm_iter_three_tuple_and_ref_match_jax_ref(kind):
     j, t = _state(1500, 64, "float32", seed=1)
@@ -122,8 +159,11 @@ def test_kernel_matches_plain_on_card():
     and even n, a ragged m, D aligned and as a row-offset view (a base off
     16-byte alignment: the ring copies the ragged bytes by hand), f32 and
     bf16, and n = 307 pinned to the wide route; two identical calls
-    bitwise equal. Bounds: chip_smoke.py's small-shape 2e-5, relative to
-    max(1, max |plain|)."""
+    bitwise equal, the four stopping sums included. Bounds: chip_smoke.py's
+    small-shape 2e-5, relative to max(1, max |plain|); the four sums within
+    1e-5 relative of the torch expressions on the kernel's own y' and lam'
+    and of the plain version's sums (hinge and l1 with an outer scale, l1
+    with a null aux)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel runs only on the card)")
     dev = torch.device("cuda")
@@ -145,6 +185,8 @@ def test_kernel_matches_plain_on_card():
         x = 0.1 * torch.randn(n, generator=g, device=dev)
         a = None if kind == "l1" else aux
         p = 0.3 if kind == "quantile" else 0.0
+        loss = _loss(kind, p)
+        sc = loss.kernel_delta_scale
         key = ("iter", m, n, str(dt).replace("torch.", ""))
         if pin:
             autotune.CACHE[key] = autotune._wide_grid(m, n)
@@ -153,19 +195,27 @@ def test_kernel_matches_plain_on_card():
             assert tops.route(m, n, dt) == want
             for D in (base[:m], base[1:]):
                 before = (fn.launches_ring, fn.launches_wide)
-                o1 = fn(D, a, y, lam, x, kind=kind, delta=2.0, param=p)
-                o2 = fn(D, a, y, lam, x, kind=kind, delta=2.0, param=p)
+                o1 = fn(D, a, y, lam, x, kind=kind, delta=2.0, param=p,
+                        scale=sc)
+                o2 = fn(D, a, y, lam, x, kind=kind, delta=2.0, param=p,
+                        scale=sc)
                 op = tops.admm_iter_plain(D, a, y, lam, x, kind=kind,
-                                          delta=2.0, param=p)
+                                          delta=2.0, param=p, scale=sc)
                 torch.cuda.synchronize()
                 moved = (fn.launches_ring - before[0],
                          fn.launches_wide - before[1])
-                assert moved == ((2, 0) if want == "ring" else (0, 2))
+                assert moved == ((2, 0) if want == "ring" else (0, 2)), \
+                    (m, n, dt, kind, pin, moved)
                 assert all(torch.equal(u, v) for u, v in zip(o1, o2))
                 for u, v in zip(o1, op):
                     scale = max(1.0, float(v.abs().max()))
                     assert float((u - v).abs().max()) <= 2e-5 * scale, \
                         (m, n, dt, kind, pin)
+                terms = _torch_stop_terms(loss, a, o1[0], o1[1], lam)
+                for ref in (terms, op[5]):
+                    rel = ((o1[5] - ref).abs() / ref.abs()).max()
+                    assert float(rel) <= 1e-5, (m, n, dt, kind, pin,
+                                                o1[5].tolist(), ref.tolist())
         finally:
             if pin:
                 del autotune.CACHE[key]

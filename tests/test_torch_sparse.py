@@ -210,7 +210,8 @@ def test_zero_nnz_blocks_and_empty_matrix():
     eng = IterationEngine(loss=tprox.make_l1(0.3), tau=1.0, device="cpu")
     ref = eng.iterate(torch.from_numpy(D), None, ty, tl, tx)
     st = eng.iterate(b, None, ty, tl, tx)
-    for got, want in zip(st, ref):
+    assert st.stats is None and ref.stats is None     # torch bodies on the CPU
+    for got, want in zip(st[:5], ref[:5]):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
     est = eng.iterate(empty, None, ty[:64], tl[:64], tx)
     np.testing.assert_array_equal(est.d.numpy(), 0)
