@@ -9,6 +9,22 @@ closed the peak memory is read, the program's state is freed, and the
 reference works the answer out again from the same inputs; every answer is
 judged against it. Every rank then lists the modules of JAX or the JAX
 package it holds, so that the run can be refused when any rank loaded one.
+
+What a per-layer reader (``metrics/<name>.py::read(ctx)``) finds in a
+traced run: ``ctx.trace`` holds one summary a rank, in rank order, and
+``None`` in an untraced run. Each is ``devtrace.summarize``'s dict (busy
+and window seconds, each fit's span, device seconds and launches by
+kernel, idle seconds by host op) with two keys more, from the program
+itself, which records them only in a traced window (after the warm
+requests; an untraced window sees ``repro_torch.obs.NOOP``):
+
+- ``t["spans"]``: ``progspans.summarize`` of the program's spans on the
+  thread that ran the fits; the table of one span is
+  ``t["spans"]["spans"][<span>]``, with ``count``, ``host_s``,
+  ``device_s`` and ``idle_s``. ``None`` where several clients ran fits on
+  threads of their own: a span reader then returns ``None``.
+- ``t["counters"]``: ``{<name>: value}``, each of the program's counters
+  (``Observability.inc``) summed over its labels, over the window.
 """
 from __future__ import annotations
 
@@ -16,12 +32,14 @@ import gc
 import math
 import statistics
 import sys
+import threading
 import time
 from types import SimpleNamespace
 
 import torch
+from repro_torch import obs
 
-from fitbench import card, devtrace, loadgen, manifest, roofline
+from fitbench import card, devtrace, loadgen, manifest, progspans, roofline
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
@@ -89,7 +107,9 @@ def _measure(w, seed, seconds, trace, dev, t0, group):
               f"{t0 + setup_s - t_warm:.2f}", file=sys.stderr)
     watch = first and dev.type == "cuda"
     cards = [card.state()] if watch else []
-    with devtrace.profiled(trace, dev.type) as prof:
+    # the program's spans and counters, in a traced window only
+    ob = obs.Observability(enabled=True) if trace else obs.NOOP
+    with devtrace.profiled(trace, dev.type) as prof, obs.recording(ob):
         records, window = loadgen.drive(mix, fit, seconds, seed=seed,
                                         sync=lambda: _sync(dev),
                                         gate=gate, trace=trace)
@@ -110,11 +130,35 @@ def _measure(w, seed, seconds, trace, dev, t0, group):
         torch.cuda.empty_cache()
     if prof is not None:
         t = time.perf_counter()
-        payload["trace"] = devtrace.summarize(prof)
+        summary = devtrace.summarize(prof)
+        # the loop's spans lie on the one thread that ran the fits
+        tid = threading.get_ident() \
+            if int(mix.get("clients", 1)) == 1 else None
+        summary["spans"] = None if tid is None else progspans.summarize(
+            prof, ob.tracer.events(), tid)
+        summary["counters"] = _counter_totals(ob.registry)
+        payload["trace"] = summary
         if first:
             print(f"fitbench: trace of the window read in "
                   f"{time.perf_counter() - t:.1f} s", file=sys.stderr)
+            sp = summary["spans"]
+            if sp is not None:
+                print("\n".join(progspans.table(sp)), file=sys.stderr)
+                print(f"fitbench: the fits' idle {sp['fits_idle_s']:.6f} s "
+                      f"split by span (device clock aligned), "
+                      f"{sum(s - b for s, b in summary['fits']):.6f} s by "
+                      f"the trace; shift ns {sp['shift_ns']}, bracket ns "
+                      f"{sp['bracket_ns']}, drifted {sp['drifted']}, early "
+                      f"{sp['early']}", file=sys.stderr)
     return payload, inputs
+
+
+def _counter_totals(registry) -> dict:
+    """{name: value summed over its labels} of a registry's counters."""
+    out = {}
+    for c in registry.snapshot()["counters"]:
+        out[c["name"]] = out.get(c["name"], 0) + c["value"]
+    return out
 
 
 def _rank(w, seed, seconds, trace, device, t0, rank=None):

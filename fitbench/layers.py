@@ -1,6 +1,7 @@
 """Arithmetic the per-layer metric readers share, over the ranks' trace
-summaries (``devtrace.summarize``)."""
-from fitbench import devtrace, roofline
+summaries (``devtrace.summarize``, with the program's spans under
+``spans``: ``harness``)."""
+from fitbench import devtrace, progspans, roofline
 
 K3 = ("admm_ring_kernel", "admm_iter_kernel", "admm_reduce_kernel")
 NCCL = ("nccl",)
@@ -47,3 +48,13 @@ def idle_pct(ctx):
         return None
     return 100.0 * sum(1.0 - t["busy_s"] / t["window_s"]
                        for t in ctx.trace) / len(ctx.trace)
+
+
+def span_ms_per_iter(ctx, key):
+    """Milliseconds an iteration of ``progspans.per_iter_ms``'s ``key``,
+    over the ranks' span tables; None when the run is untraced or a rank
+    has no table or no iteration in it."""
+    if not ctx.trace or any(not (t.get("spans") or {}).get("iters")
+                            for t in ctx.trace):
+        return None
+    return progspans.per_iter_ms([t["spans"] for t in ctx.trace]).get(key)

@@ -6,7 +6,11 @@ A cell names a configuration (``configs/<config>.json``) and a traffic mix
 plain reference (``reference/<reference>.py``) and the stages of its
 roofline (``work/<stage>.py``); a metric is read by ``metrics/<name>.py``.
 Adding a cell, a configuration or a metric adds files and entries and edits
-none.
+none: a new cell joins an end-to-end metric by appending its name to that
+metric's ``workloads``, and its per-layer metrics name it in theirs. A
+reader of a configuration's own layers finds each rank's table of the
+program's spans at ``t["spans"]["spans"][<span>]`` and its counters at
+``t["counters"][<name>]``, for ``t`` in ``ctx.trace`` (``harness``).
 """
 from __future__ import annotations
 

@@ -1,11 +1,17 @@
 """``progspans`` on hand-made traces: launches attributed by correlation
 id, an idle partition that sums to the fits' idle time, the ``(none)``
 bucket, the device clock put back on the host's, and the exchange's wait
-for the slowest rank; and a ``--trace 0`` run of the harness, whose
-window records no program span."""
-import pytest
+for the slowest rank; the span readers on tables with known idle; a
+``--trace 0`` run of the harness, whose window records no program span,
+and ``--trace 1`` runs, whose rank summaries carry the program's spans and
+counters."""
+from types import SimpleNamespace
 
-from fitbench import harness, loadgen, progspans
+import pytest
+import torch
+
+from fitbench import devtrace, harness, layers, loadgen, manifest, progspans
+from fitbench import ranks
 
 PAGEABLE = "Memcpy DtoH (Device -> Pageable)"
 # one fit [0, 100) with two iterations of the loop's spans (times in ns)
@@ -134,3 +140,152 @@ def test_untraced_window_records_no_program_span(monkeypatch):
                            cfg_override={"rows_per_node": 20000})
     assert out["attempted"] >= 1
     assert seen and all(o is obs.NOOP for o in seen)
+
+
+def _two_ranks():
+    """Two ranks' tables of two iterations each, the second rank's
+    exchange 30 ns after the first's, and 13 ns of idle under
+    ``host_sync`` and 4 under ``iterate`` on each."""
+    spans = [(0, 50, "iterate"), (10, 30, "exchange"), (35, 45, "host_sync"),
+             (50, 100, "iterate"), (60, 80, "exchange"),
+             (85, 95, "host_sync")]
+    dev = [(15, 20, "ncclDevKernel_AllGather", 1),
+           (36, 40, PAGEABLE, 2),
+           (65, 70, "ncclDevKernel_AllGather", 3),
+           (86, 90, PAGEABLE, 4)]
+    launch = {1: (12, 13), 2: (35, 41), 3: (62, 63), 4: (85, 91)}
+
+    def table(off):
+        return progspans.attribute(
+            [(a + off, b + off, *x) for a, b, *x in dev],
+            {k: (a + off, b + off) for k, (a, b) in launch.items()},
+            [(off, 100 + off)], [(a + off, b + off, n) for a, b, n in spans])
+    return [table(0), table(30)]
+
+
+def _ctx(tables):
+    return SimpleNamespace(trace=[{"spans": t} for t in tables])
+
+
+# (reader, ranks' tables, expected ms an iteration); times in ns, 2 iters
+READERS = [
+    ("sync_idle_ms_per_iter", lambda: [_table()], 13e-9 / 2 * 1e3),
+    ("dispatch_idle_ms_per_iter", lambda: [_table()], 12e-9 / 2 * 1e3),
+    # on each rank: idle under host_sync 35-36, 40-45, 85-86, 90-95
+    ("sync_idle_ms_per_iter.x4", _two_ranks, 12e-9 / 2 * 1e3),
+    # under exchange 10-15, 20-30, 60-65, 70-80; under iterate 0-10,
+    # 30-35, 45-60, 80-85, 95-100
+    ("dispatch_idle_ms_per_iter.x4", _two_ranks,
+     (30 + 40) * 1e-9 / 2 * 1e3),
+    # rank 0 waits 30 ns in each exchange for rank 1, which waits none:
+    # over 2 exchanges, 2 ranks and 2 iterations
+    ("exchange_wait_ms_per_iter.x4", _two_ranks,
+     (30 + 30) * 1e-9 / 2 / 2 * 1e3),
+]
+
+
+@pytest.mark.parametrize("name,tables,ms", READERS,
+                         ids=[r[0] for r in READERS])
+def test_span_reader_gives_known_ms(name, tables, ms):
+    reader = manifest.module("metrics", name)
+    assert reader.read(_ctx(tables())) == pytest.approx(ms, rel=1e-9)
+
+
+@pytest.mark.parametrize("name", [r[0] for r in READERS])
+def test_span_reader_without_spans_gives_none(name):
+    reader = manifest.module("metrics", name)
+    t = _two_ranks()
+    assert reader.read(SimpleNamespace(trace=None)) is None
+    assert reader.read(SimpleNamespace(trace=[{"spans": None}])) is None
+    assert reader.read(_ctx([t[0], None])) is None
+    assert reader.read(SimpleNamespace(trace=[{}, {}])) is None
+    # a table with no iteration in it
+    assert reader.read(_ctx([_table(spans=[])])) is None
+
+
+def test_span_helper_needs_every_rank():
+    t = _two_ranks()
+    ctx = _ctx(t)
+    assert layers.span_ms_per_iter(ctx, "sync_idle") \
+        == pytest.approx(progspans.per_iter_ms(t)["sync_idle"])
+    assert layers.span_ms_per_iter(_ctx([t[0], {"iters": 0}]),
+                                   "sync_idle") is None
+
+
+def _summary(prof):
+    """``devtrace.summarize`` of a window with no device: it raises on a
+    CPU profile."""
+    return {"window_s": 1.0, "busy_s": 0.5, "fits": [(1.0, 0.5)],
+            "kernels": {}, "idle": {}}
+
+
+def _traced_rank(w, seed, seconds, trace, device, t0, rank=None):
+    """``harness._rank`` with the device summary stubbed; rank 0's result
+    also carries every rank's trace summary and window iterations, and the
+    ``Observability`` each of its fits saw."""
+    from repro_torch import obs
+    mp = pytest.MonkeyPatch()
+    mp.setattr(devtrace, "summarize", _summary)
+    seen = []
+    drive, finish = loadgen.drive, harness._finish
+
+    def watched(mix, fit, *a, **kw):
+        def fit_seen(req):
+            seen.append(obs.current())
+            return fit(req)
+        return drive(mix, fit_seen, *a, **kw)
+
+    def kept(w, payloads, *a):
+        return {**finish(w, payloads, *a), "seen": seen,
+                "traces": [p["trace"] for p in payloads],
+                "iters": [[x["iters"] for x in p["answers"]]
+                          for p in payloads]}
+    mp.setattr(loadgen, "drive", watched)
+    mp.setattr(harness, "_finish", kept)
+    torch.set_num_threads(1)
+    try:
+        return harness._rank(w, seed, seconds, trace, device, t0, rank=rank)
+    finally:
+        mp.undo()
+
+
+@pytest.mark.parametrize("cell,rows", [("star-logistic", 1000),
+                                       ("star-logistic-x4", 1000)])
+def test_traced_window_records_the_program_spans_and_counters(
+        cell, rows, monkeypatch):
+    """A ``--trace 1`` run: every fit of the window sees an enabled
+    ``Observability``; each rank's summary carries the loop's spans, one
+    ``iterate`` an iteration of the window, and its counters, one
+    ``stop_terms`` count a sweep; the cell's span readers read them."""
+    from repro_torch import obs
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    w = manifest.cell(manifest.load(), cell)
+    w["cfg"].update({"rows_per_node": rows, "base_features": 3,
+                     "max_iters": 20})
+    args = (w, 2 ** 31 + 19, 0.001, True, "cpu", 0.0)
+    out = _traced_rank(*args) if w["chips"] == 1 \
+        else ranks.run(w["chips"], _traced_rank, args)
+    assert out["correct"], out["checks"]
+    assert out["seen"] and all(o.enabled and o is not obs.NOOP
+                               for o in out["seen"])
+    assert len({id(o) for o in out["seen"]}) == 1
+    assert obs.current() is obs.NOOP
+    assert len(out["traces"]) == w["chips"]
+    for t, iters in zip(out["traces"], out["iters"]):
+        sweeps = sum(iters)
+        assert sweeps > 0
+        assert t["spans"]["iters"] == sweeps
+        assert t["spans"]["spans"]["host_sync"]["count"] == sweeps
+        c = t["counters"]
+        assert c.get("stop_terms.torch", 0) + c.get("stop_terms.fused", 0) \
+            == sweeps
+        assert all(isinstance(v, (int, float)) for v in c.values())
+        # no device on the CPU: the fits' time is all idle, split by span
+        assert sum(r["idle_s"] for r in t["spans"]["spans"].values()) \
+            == pytest.approx(t["spans"]["fits_idle_s"])
+    spanned = [m["name"] for m in w["per_layer"]
+               if m["source"] == "program_span"]
+    got = {k for k, v in out["metrics"].items() if v["value"] > 0}
+    # no NCCL on the CPU: the exchange's wait is not read there
+    assert set(spanned) - got == ({"exchange_wait_ms_per_iter.x4"}
+                                  if w["chips"] > 1 else set())

@@ -1,6 +1,8 @@
 """``run.py`` refuses to run without the card the cell asks for, in a
 directory that holds only the benchmark, and where any rank of the run
 loaded a module of JAX or the JAX package, printing no result."""
+import json
+import os
 import shutil
 import subprocess
 import sys
@@ -47,17 +49,32 @@ def _rank_with_jax_on_rank_1(w, seed, seconds, trace, device, t0, rank):
     return harness._rank(w, seed, seconds, trace, device, t0, rank=rank)
 
 
-def test_a_jax_module_on_one_rank_is_found(monkeypatch):
-    """Rank 1 alone loads a module named ``jax``: the run names it."""
-    from fitbench import ranks, run
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    w = manifest.cell(manifest.load(), "star-logistic-x4")
-    w["cfg"].update({"rows_per_node": 2000, "max_iters": 20})
-    out = ranks.run(4, _rank_with_jax_on_rank_1,
-                    (w, 2 ** 31 + 17, 0.001, False, "cpu", 0.0))
+def test_a_jax_module_on_one_rank_is_found():
+    """Rank 1 alone loads a module named ``jax``: the run names it. Rank 0
+    runs in a new process too, so what this test's own process has loaded
+    (another test file's JAX) is not seen."""
+    code = (
+        "import json\n"
+        "from fitbench import manifest, ranks, run\n"
+        "from fitbench.tests.test_fitbench_run import "
+        "_rank_with_jax_on_rank_1\n"
+        "w = manifest.cell(manifest.load(), 'star-logistic-x4')\n"
+        "w['cfg'].update({'rows_per_node': 2000, 'max_iters': 20})\n"
+        "out = ranks.run(4, _rank_with_jax_on_rank_1, "
+        "(w, 2 ** 31 + 17, 0.001, False, 'cpu', 0.0))\n"
+        "print(json.dumps({'correct': out['correct'], "
+        "'forbidden': out['forbidden'], "
+        "'found': run.forbidden_found(out)}))\n")
+    root = manifest.ROOT
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(root), str(root / "src")]))
+    got = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert got.returncode == 0, got.stderr[-2000:]
+    out = json.loads(got.stdout.strip().splitlines()[-1])
     assert out["correct"]
     assert out["forbidden"] == {"1": ["jax"]}
-    assert run.forbidden_found(out) == {"1": ["jax"]}
+    assert out["found"] == {"1": ["jax"]}
 
 
 def test_a_found_module_refuses_the_result(monkeypatch, capsys):
